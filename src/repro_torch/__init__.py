@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of the serving stack in ``repro``.
+
+The port mirrors the reference package's module names (``configs``,
+``kernels``, ``models``, ``serving``, ``launch``) so each module has an
+obvious counterpart.  It imports torch and numpy only: never ``jax`` and never
+``repro``; what it needs from the reference's pure-data modules it keeps as
+its own copy.  Its two attention kernels are CUDA C++ written for Hopper
+(``kernels/csrc``), built with ``nvcc`` at first use.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+from .device import resolve_device  # noqa: F401
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,16 @@
+"""Nemotron-4-340B (dense, GQA, squared-ReLU MLP).  [arXiv:2402.16819]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="nemotron-4-340b",
+    family="dense",
+    n_layers=96,
+    d_model=18432,
+    n_heads=96,
+    n_kv_heads=8,
+    d_ff=73728,
+    vocab_size=256000,
+    head_dim=192,
+    mlp="relu2",  # squared ReLU
+    norm="layernorm",
+)

@@ -1,0 +1,124 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+the checkout's ``build/`` directory and loaded with ``ctypes``; the library's
+file name carries a hash of the source and flags, so an edited source is
+rebuilt and a stale one is never loaded.  Nothing here runs at import time:
+the CPU tests import every module without a CUDA toolkit.
+
+``launch`` is the one place a kernel is started.  It counts the launch and
+raises if the C side reports a CUDA error, so a refused launch never passes
+silently.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+__all__ = [
+    "CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "launch",
+    "launch_counts", "reset_launch_counts",
+]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+#: ``<checkout>/build`` (listed in .gitignore): src/repro_torch/kernels -> root
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+_COUNTS: Dict[str, int] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for cand in (
+        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None,
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile the named kernels that are not built yet, all ``nvcc``
+    processes started together.  Returns seconds per compiled kernel and
+    writes each compiler log (``-Xptxas -v``: registers, shared memory,
+    spills) beside its library."""
+    todo = [(n, _lib_path(n)) for n in names]
+    todo = [(n, p) for n, p in todo if not p.exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs: List = []
+    t0 = time.perf_counter()
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    seconds: Dict[str, float] = {}
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
+def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``; ``signatures`` maps each
+    exported C function to its ``argtypes``.  Every function returns the
+    ``cudaError_t`` of its launch as an int."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
+
+
+def launch(counter: str, fn, *args) -> None:
+    """Call one exported launcher, count the launch and raise on a CUDA error."""
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{counter} kernel launch failed: cudaError_t {rc}")
+    _COUNTS[counter] = _COUNTS.get(counter, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_COUNTS)
+
+
+def reset_launch_counts() -> None:
+    _COUNTS.clear()

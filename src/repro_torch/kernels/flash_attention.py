@@ -1,0 +1,73 @@
+"""Flash attention forward (prefill): wrapper of ``csrc/flash_attention.cu``.
+
+Counterpart of ``repro/kernels/flash_attention.py`` (``flash_attention_pallas``).
+``flash_attention`` launches the CUDA kernel for a CUDA tensor and takes the
+plain version (``ref.attention_ref``) only for a CPU tensor.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "flash_attention_cuda", "NAME"]
+
+NAME = "flash_attention"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            ctypes.c_float, _P],
+}
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, Dv)
+    causal: bool = True,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    dv = v.shape[-1]
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError("flash_attention_cuda: q, k, v must be on one CUDA device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_cuda: float32 or bfloat16 only, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape[0] != b or v.shape[:3] != k.shape[:3] or hq % hkv or d != k.shape[3]:
+        raise ValueError(f"flash_attention_cuda: bad shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if d > 256 or dv > 256:
+        raise ValueError("flash_attention_cuda: head dims above 256")
+    if causal and sq > sk:
+        raise ValueError("flash_attention_cuda: causal with Sq > Sk leaves query rows "
+                         "with no visible key")
+    if sliding_window is not None and sliding_window < 1:
+        raise ValueError("flash_attention_cuda: sliding_window must be >= 1")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
+    lib = _build.load(NAME, _SIGNATURES)
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
+    _build.launch(
+        NAME, lib.flash_attention_fwd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
+        b, sq, sk, hq, hkv, d, dv, int(causal), int(sliding_window or 0),
+        1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return out
+
+
+def flash_attention(q, k, v, causal: bool = True, sliding_window: Optional[int] = None):
+    """CUDA tensor: the hand-written kernel (or an error).  CPU tensor: the
+    plain version."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal, sliding_window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal, sliding_window)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")

@@ -1,0 +1,23 @@
+"""Kernel dispatch: one call site for the model code.
+
+Counterpart of ``repro/kernels/ops.py``.  There is no global switch: a CUDA
+tensor launches the hand-written kernel (or raises), a CPU tensor takes the
+plain version.  No ``try`` falls back from one to the other.  Every kernel
+keeps an integer launch count, read with ``launch_counts()``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import launch_counts, reset_launch_counts
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention
+
+__all__ = [
+    "flash_attention", "decode_attention", "cross_attention",
+    "launch_counts", "reset_launch_counts",
+]
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return flash_attention(q, k, v, causal=False, sliding_window=None)

@@ -1,0 +1,90 @@
+"""Serving entry point: one continuous-batching engine fed by a seeded synthetic
+request stream.  Counterpart of ``repro/launch/serve.py`` (engine mode; the
+placement-integrated cluster mode is not ported yet).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+Weights are random, drawn from a ``torch.Generator`` seeded with ``--seed``.
+Prompt lengths are drawn from ``[--prompt-len LO HI)`` (default
+``[4, max_len // 4)``) and ``max_new_tokens`` from ``[--min-new, --max-new)``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduced as reduce_cfg
+from repro_torch.device import resolve_device
+from repro_torch.models import bundle
+from repro_torch.serving import Engine, EngineConfig, Request
+
+
+def make_requests(args, vocab_size: int) -> List[Request]:
+    rng = np.random.default_rng(args.seed)
+    lo, hi = args.prompt_len or (4, args.max_len // 4)
+    reqs = []
+    for i in range(args.requests):
+        plen = int(rng.integers(lo, hi))
+        prompt = list(map(int, rng.integers(1, vocab_size, size=plen)))
+        reqs.append(Request(rid=f"req{i}", prompt=prompt,
+                            max_new_tokens=int(rng.integers(args.min_new, args.max_new))))
+    return reqs
+
+
+def run_engine(args) -> Dict[str, Any]:
+    """Build the model and engine on ``args.device``, serve the request
+    stream to completion and return what happened."""
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    mb = bundle(cfg)
+    params = mb.init(torch.Generator(device=dev).manual_seed(args.seed), device=dev)
+    eng = Engine(mb, params, EngineConfig(max_slots=args.slots, max_len=args.max_len))
+    for req in make_requests(args, cfg.vocab_size):
+        eng.submit(req)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    done = eng.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    toks = sum(len(c.tokens) for c in done)
+    if len(done) != args.requests:
+        raise RuntimeError(f"{len(done)} of {args.requests} requests completed")
+    return {"completions": done, "tokens": toks, "seconds": dt, "tok_per_s": toks / dt,
+            "stats": dict(eng.stats), "engine": eng, "params": params, "bundle": mb}
+
+
+def parse_args(argv: Optional[List[str]] = None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--prompt-len", type=int, nargs=2, metavar=("LO", "HI"), default=None)
+    ap.add_argument("--min-new", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    res = run_engine(parse_args(argv))
+    st = res["stats"]
+    print(f"{len(res['completions'])} completions, {res['tokens']} tokens in "
+          f"{res['seconds']:.2f}s ({res['tok_per_s']:,.1f} tok/s), "
+          f"{st['decode_steps']} decode steps, {st['prefills']} prefills")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

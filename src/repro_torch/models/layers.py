@@ -1,0 +1,153 @@
+"""Layers of the dense decoder: norms, RoPE, GQA attention, MLPs, embedding
+and the LM head.  Counterpart of ``repro/models/layers.py``.
+
+Plain functions on tensors.  Parameters are dicts of tensors in the
+reference layout: weights are ``(d_in, d_out)`` and applied as ``x @ W``;
+caches are ``(B, Smax, Hkv, D)``.  Attention routes through
+``kernels.ops``, so a CUDA tensor runs the hand-written kernels and a CPU
+tensor the plain versions.  Norms and logits are computed in f32.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels import ops as kops
+
+Params = Dict[str, Any]
+
+
+def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-5):
+    xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE: interleaved (even, odd) pairs, as in the reference -- not the
+# rotate-half convention of Llama/HF checkpoints.
+# ---------------------------------------------------------------------------
+def rope_tables(
+    positions: torch.Tensor, dim: int, theta: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., S) -> (..., S, dim/2) sin/cos tables in f32."""
+    half = dim // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = positions[..., None].float() * freqs
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(
+    x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, mode: str = "full"
+) -> torch.Tensor:
+    """x (B,S,H,D); rotate pairs (even, odd).  mode='half' rotates only the
+    first half of D (ChatGLM-style partial rotary)."""
+    if mode == "none":
+        return x
+    d = x.shape[-1]
+    rot_d = d if mode == "full" else d // 2
+    xr, xp = x[..., :rot_d], x[..., rot_d:]
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    s = sin[:, :, None, : rot_d // 2]
+    c = cos[:, :, None, : rot_d // 2]
+    y1 = x1 * c - x2 * s
+    y2 = x2 * c + x1 * s
+    yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([yr, xp], dim=-1) if mode == "half" else yr
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, hd)
+
+
+def attention(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    positions: torch.Tensor,
+    cache: Optional[Params] = None,
+) -> torch.Tensor:
+    """GQA self-attention.
+
+    cache: None (no cache) or {"k","v" (B,Smax,Hkv,Dh), "index"} views into
+    the model's stacked cache.  ``index`` is a scalar (uniform batch) or a
+    (B,) tensor (ragged continuous batching).  Where the reference returns a
+    new cache, this updates the given tensors in place: the new K/V rows are
+    written and ``index`` advances by the number of tokens.
+    """
+    hd = cfg.head_dim_
+    b, s, _ = x.shape
+    q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
+    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
+    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
+    sin, cos = rope_tables(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, sin, cos, cfg.rope_mode)
+    k = apply_rope(k, sin, cos, cfg.rope_mode)
+
+    if cache is None:
+        out = kops.flash_attention(q, k, v, causal=True, sliding_window=cfg.sliding_window)
+    else:
+        ck, cv, idx = cache["k"], cache["v"], cache["index"]
+        smax = ck.shape[1]
+        if idx.dim() == 1:
+            # ragged decode (s == 1): per-slot write position, clamped so an
+            # idle slot whose index has run past the end rewrites the last row
+            wr = idx.clamp(max=smax - 1).long()
+            bix = torch.arange(b, device=x.device)
+            ck[bix, wr] = k[:, 0].to(ck.dtype)
+            cv[bix, wr] = v[:, 0].to(cv.dtype)
+        else:
+            # uniform write of s rows at index (clamped to fit, like
+            # dynamic_update_slice); no host sync on the index
+            pos = idx.clamp(max=smax - s).long() + torch.arange(s, device=x.device)
+            ck.index_copy_(1, pos, k.to(ck.dtype))
+            cv.index_copy_(1, pos, v.to(cv.dtype))
+        if s == 1:
+            out = kops.decode_attention(q, ck, cv, length=idx + 1)
+        else:
+            # prefill from an empty cache: causal attention over the fresh block
+            out = kops.flash_attention(
+                q, k, v, causal=True, sliding_window=cfg.sliding_window
+            )
+        idx.add_(s)
+    return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    elif kind == "relu2":
+        h = torch.square(F.relu(x @ p["w_in"]))
+    else:  # gelu; jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(x @ p["w_in"], approximate="tanh")
+    return h @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / LM head
+# ---------------------------------------------------------------------------
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def lm_logits(table_or_w: torch.Tensor, x: torch.Tensor, tied: bool) -> torch.Tensor:
+    w = table_or_w.T if tied else table_or_w
+    return x.float() @ w.float()

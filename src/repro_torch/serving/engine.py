@@ -1,0 +1,204 @@
+"""Continuous-batching inference engine (iteration-level scheduling).
+Counterpart of ``repro/serving/engine.py``, with the same behaviour:
+
+  * a fixed decode batch of ``max_slots`` sequence slots shares one ragged
+    cache (per-slot ``index`` lengths — see models/transformer.init_cache);
+  * a new request is PREFILLED at batch 1, padded to a power-of-two bucket,
+    then INSERTED into a free slot via kvcache.insert_prefix;
+  * one ``step()`` = admit waiting requests into free slots + one ragged
+    decode step advancing every active slot by one token;
+  * finished sequences (EOS / max_new_tokens) release their slot — the next
+    admission overwrites it, no cache zeroing needed.
+
+The reference jits the decode step and donates the cache; here the model
+updates the cache tensors in place.  The engine runs on the device its
+parameters live on.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Any, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..models.model_zoo import ModelBundle
+from ..tree import tree_leaves
+from .kvcache import insert_prefix
+
+__all__ = ["Request", "Completion", "Engine", "EngineConfig"]
+
+
+@dataclasses.dataclass
+class Request:
+    rid: str
+    prompt: List[int]
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: str
+    prompt: List[int]
+    tokens: List[int]
+    prefill_len: int
+    finish_reason: str  # "eos" | "length"
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    max_slots: int = 4
+    max_len: int = 256
+
+
+@dataclasses.dataclass
+class _SlotState:
+    req: Request
+    generated: List[int]
+    length: int  # true tokens in cache (prompt + generated)
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+class Engine:
+    """One model replica serving requests with continuous batching."""
+
+    def __init__(self, bundle: ModelBundle, params, cfg: EngineConfig = EngineConfig()):
+        self.bundle = bundle
+        self.model = bundle.model
+        self.params = params
+        self.cfg = cfg
+        self.device = next(tree_leaves(params)).device
+        self.cache = self.model.init_cache(
+            cfg.max_slots, cfg.max_len, ragged=True, device=self.device
+        )
+        self.queue: Deque[Request] = collections.deque()
+        self.slots: List[Optional[_SlotState]] = [None] * cfg.max_slots
+        self.completed: List[Completion] = []
+        self.stats: Dict[str, Any] = {"prefills": 0, "decode_steps": 0, "tokens": 0}
+
+    # ------------------------------------------------------------------ API
+    def submit(self, req: Request) -> None:
+        if len(req.prompt) + req.max_new_tokens > self.cfg.max_len:
+            raise ValueError(
+                f"{req.rid}: prompt+max_new={len(req.prompt)}+{req.max_new_tokens} "
+                f"exceeds max_len={self.cfg.max_len}"
+            )
+        self.queue.append(req)
+
+    @property
+    def n_active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or self.n_active > 0
+
+    def step(self) -> int:
+        """Admit waiting requests, then advance all active slots one token.
+
+        Returns the number of tokens produced this step (incl. the first
+        token each admitted request gets from its prefill logits)."""
+        produced = self._admit()
+        return produced + self._decode_step()
+
+    def run(self, max_steps: int = 100_000) -> List[Completion]:
+        for _ in range(max_steps):
+            if not self.has_work:
+                break
+            self.step()
+        return self.completed
+
+    # ------------------------------------------------------------- internals
+    def _admit(self) -> int:
+        produced = 0
+        for slot_id, st in enumerate(self.slots):
+            if st is not None or not self.queue:
+                continue
+            req = self.queue.popleft()
+            first_tok = self._prefill_into(slot_id, req)
+            self.slots[slot_id] = _SlotState(
+                req=req, generated=[first_tok], length=len(req.prompt) + 1
+            )
+            self.stats["prefills"] += 1
+            self.stats["tokens"] += 1
+            produced += 1
+            self._retire_if_done(slot_id)
+        return produced
+
+    @torch.no_grad()
+    def _prefill_into(self, slot_id: int, req: Request) -> int:
+        plen = len(req.prompt)
+        toks = np.zeros((1, _next_pow2(plen)), np.int64)
+        toks[0, :plen] = req.prompt
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        logits, prefix = self.bundle.prefill_fn(self.params, batch, max_len=self.cfg.max_len)
+        # first generated token: logits at the LAST TRUE prompt position
+        first = int(torch.argmax(logits[0, plen - 1, :]))
+        insert_prefix(self.cache, prefix, slot_id, plen)
+        # the first token's KV is not in the cache yet: the next decode
+        # step's write appends it
+        return first
+
+    @torch.no_grad()
+    def _decode_step(self) -> int:
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return 0
+        tokens = np.zeros((self.cfg.max_slots, 1), np.int64)
+        lengths = np.zeros((self.cfg.max_slots,), np.int32)
+        for i, st in enumerate(self.slots):
+            if st is not None:
+                tokens[i, 0] = st.generated[-1]
+                lengths[i] = st.length - 1  # position OF the fed token
+        # inactive slots: keep device/host index agreement by feeding their
+        # device-side index (the model bumps every slot's index by 1).
+        dev_idx = self._slot_indexes()
+        for i in range(self.cfg.max_slots):
+            if self.slots[i] is None:
+                lengths[i] = dev_idx[i]
+        logits, self.cache = self.model.forward(
+            self.params,
+            {"tokens": torch.from_numpy(tokens).to(self.device)},
+            cache=self.cache,
+            positions=torch.from_numpy(lengths).to(self.device)[:, None],
+        )
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        produced = 0
+        self.stats["decode_steps"] += 1
+        for i in active:
+            st = self.slots[i]
+            st.generated.append(int(nxt[i]))
+            st.length += 1
+            produced += 1
+            self.stats["tokens"] += 1
+            self._retire_if_done(i)
+        return produced
+
+    def _slot_indexes(self) -> np.ndarray:
+        """Device-side per-slot cache index (of the first layer)."""
+        return self.cache["groups"][0]["attn"]["index"][0].cpu().numpy()
+
+    def _retire_if_done(self, slot_id: int) -> None:
+        st = self.slots[slot_id]
+        req = st.req
+        done_eos = req.eos_id is not None and st.generated[-1] == req.eos_id
+        done_len = len(st.generated) >= req.max_new_tokens
+        if done_eos or done_len:
+            self.completed.append(
+                Completion(
+                    rid=req.rid,
+                    prompt=list(req.prompt),
+                    tokens=list(st.generated),
+                    prefill_len=len(req.prompt),
+                    finish_reason="eos" if done_eos else "length",
+                )
+            )
+            self.slots[slot_id] = None

@@ -1,0 +1,247 @@
+"""Port kernels vs the reference: the port's plain versions against
+``repro.kernels.ref`` and the Pallas kernels (interpret mode) on the same
+numpy inputs, at the sweeps and tolerances of tests/test_kernels.py; the
+CUDA kernels against the plain versions on the card (``gpu`` marker).
+
+The reference package is imported inside the CPU tests only, so the ``gpu``
+tests also run where JAX is not installed:
+    python -m pytest -q -m gpu tests/test_torch_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref as tref
+
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _jax():
+    import jax.numpy as jnp
+
+    from repro.kernels import ref as jref
+    from repro.kernels.decode_attention import decode_attention_pallas
+    from repro.kernels.flash_attention import flash_attention_pallas
+
+    return jnp, jref, flash_attention_pallas, decode_attention_pallas
+
+
+def _tol(name):
+    return dict(atol=2e-2, rtol=2e-2) if name == "bfloat16" else dict(atol=2e-5, rtol=2e-5)
+
+
+def _inputs(seed, dtype_name, *shapes):
+    """The same numpy draws, cast to the dtype by each framework (both round
+    to nearest even, so the bf16 values are identical)."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return [torch.from_numpy(a).to(TORCH_DTYPES[dtype_name]) for a in arrs], arrs
+
+
+def _jax_inputs(arrs, dtype_name):
+    jnp = _jax()[0]
+    return [jnp.asarray(a).astype(getattr(jnp, dtype_name)) for a in arrs]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels are CUDA C++ for sm_90a)")
+    return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# plain versions vs the reference oracle and the Pallas kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,s,hq,hkv,d,bq,bk",
+    [
+        (1, 128, 4, 4, 64, 64, 64),  # MHA
+        (2, 256, 8, 2, 64, 128, 64),  # GQA 4:1
+        (1, 256, 6, 1, 32, 64, 128),  # MQA, uneven blocks
+        (2, 128, 4, 2, 80, 128, 128),  # non-128 head dim
+    ],
+)
+def test_attention_ref_sweep(dtype, b, s, hq, hkv, d, bq, bk):
+    (tq, tk, tv), arrs = _inputs(0, dtype, (b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))
+    jnp, jref, flash_attention_pallas, decode_attention_pallas = _jax()
+    q, k, v = _jax_inputs(arrs, dtype)
+    got = tref.attention_ref(tq, tk, tv, causal=True)
+    assert got.dtype == tq.dtype and got.shape == (b, s, hq, d)
+    want = jref.attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    pallas = flash_attention_pallas(q, k, v, causal=True, block_q=bq, block_k=bk,
+                                    interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("window", [32, 100, 256])
+def test_attention_ref_sliding_window(window):
+    b, s, hq, hkv, d = 2, 256, 4, 2, 64
+    (tq, tk, tv), arrs = _inputs(1, "float32", (b, s, hq, d), (b, s, hkv, d),
+                                 (b, s, hkv, d))
+    jnp, jref, flash_attention_pallas, decode_attention_pallas = _jax()
+    q, k, v = _jax_inputs(arrs, "float32")
+    got = tref.attention_ref(tq, tk, tv, causal=True, sliding_window=window)
+    want = jref.attention_ref(q, k, v, causal=True, sliding_window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+    pallas = flash_attention_pallas(q, k, v, causal=True, sliding_window=window,
+                                    block_q=64, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=2e-5, rtol=2e-5)
+
+
+def test_attention_ref_noncausal():
+    b, s, h, d = 1, 128, 4, 64
+    (tq, tk, tv), arrs = _inputs(2, "float32", (b, s, h, d), (b, s, h, d), (b, s, h, d))
+    jnp, jref, flash_attention_pallas, decode_attention_pallas = _jax()
+    q, k, v = _jax_inputs(arrs, "float32")
+    got = tref.attention_ref(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_np(got), _np(jref.attention_ref(q, k, v, causal=False)),
+                               atol=2e-5, rtol=2e-5)
+    pallas = flash_attention_pallas(q, k, v, causal=False, block_q=64, block_k=64,
+                                    interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize(
+    "sq,sk,causal,window,dv",
+    [
+        (300, 300, True, None, 64),  # odd S (a forward without a cache)
+        (37, 37, True, 16, 64),  # odd S with a window
+        (100, 300, True, None, 64),  # Sq < Sk: end-aligned causal mask
+        (77, 150, False, None, 96),  # cross-attention shape, Dv != D
+        (150, 77, False, None, 64),  # Sq > Sk, non-causal
+    ],
+)
+def test_attention_ref_ragged_shapes(sq, sk, causal, window, dv):
+    """Shapes the Pallas kernel does not take (it needs S % block == 0 and
+    Sq == Sk): held against the reference oracle only."""
+    b, hq, hkv, d = 2, 6, 2, 64
+    (tq, tk, tv), arrs = _inputs(3, "float32", (b, sq, hq, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, dv))
+    jnp, jref, flash_attention_pallas, decode_attention_pallas = _jax()
+    q, k, v = _jax_inputs(arrs, "float32")
+    got = tref.attention_ref(tq, tk, tv, causal=causal, sliding_window=window)
+    want = jref.attention_ref(q, k, v, causal=causal, sliding_window=window)
+    assert got.shape == (b, sq, hq, dv)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,smax,hq,hkv,d,length,bk",
+    [
+        (2, 256, 8, 2, 64, 137, 64),
+        (1, 512, 4, 4, 64, 512, 128),  # full cache
+        (3, 128, 4, 1, 32, 1, 64),  # single valid slot
+        (2, 256, 16, 2, 64, 200, 256),  # big GQA group, one block
+        (2, 192, 9, 3, 64, 100, 64),  # smollm's G = 3 (not a power of two)
+    ],
+)
+def test_decode_attention_ref_sweep(dtype, b, smax, hq, hkv, d, length, bk):
+    (tq, tk, tv), arrs = _inputs(4, dtype, (b, 1, hq, d), (b, smax, hkv, d),
+                                 (b, smax, hkv, d))
+    jnp, jref, flash_attention_pallas, decode_attention_pallas = _jax()
+    q, k, v = _jax_inputs(arrs, dtype)
+    got = tref.decode_attention_ref(tq, tk, tv, length=length)
+    want = jref.decode_attention_ref(q, k, v, length=jnp.int32(length))
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    pallas = decode_attention_pallas(q, k, v, length=jnp.int32(length), block_k=bk,
+                                     interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("lens", [[1, 64, 137, 256], [300, 1, 256, 1000]])
+def test_decode_attention_ref_ragged(lens):
+    """Per-slot lengths, including lengths past Smax (idle engine slots keep
+    counting), which clamp to Smax."""
+    b, smax, hq, hkv, d = 4, 256, 8, 2, 64
+    (tq, tk, tv), arrs = _inputs(5, "float32", (b, 1, hq, d), (b, smax, hkv, d),
+                                 (b, smax, hkv, d))
+    jnp, jref, flash_attention_pallas, decode_attention_pallas = _jax()
+    q, k, v = _jax_inputs(arrs, "float32")
+    got = tref.decode_attention_ref(tq, tk, tv, length=torch.tensor(lens, dtype=torch.int32))
+    jl = jnp.asarray(lens, jnp.int32)
+    np.testing.assert_allclose(_np(got), _np(jref.decode_attention_ref(q, k, v, length=jl)),
+                               atol=2e-5, rtol=2e-5)
+    pallas = decode_attention_pallas(q, k, v, length=jl, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=2e-5, rtol=2e-5)
+
+
+def test_decode_attention_length_above_smax_is_full_cache():
+    b, smax, hq, hkv, d = 2, 128, 6, 2, 32
+    (tq, tk, tv), _ = _inputs(6, "float32", (b, 1, hq, d), (b, smax, hkv, d), (b, smax, hkv, d))
+    over = tref.decode_attention_ref(tq, tk, tv, length=smax + 57)
+    full = tref.decode_attention_ref(tq, tk, tv, length=smax)
+    assert torch.equal(over, full)
+
+
+def test_ops_on_cpu_dispatch_to_plain_versions_without_launches():
+    ops.reset_launch_counts()
+    (tq, tk, tv), _ = _inputs(7, "float32", (1, 64, 4, 32), (1, 64, 2, 32), (1, 64, 2, 32))
+    assert torch.equal(ops.flash_attention(tq, tk, tv, causal=True),
+                       tref.attention_ref(tq, tk, tv, causal=True))
+    assert torch.equal(ops.cross_attention(tq, tk, tv),
+                       tref.attention_ref(tq, tk, tv, causal=False))
+    q1 = tq[:, :1].contiguous()
+    assert torch.equal(ops.decode_attention(q1, tk, tv, length=10),
+                       tref.decode_attention_ref(q1, tk, tv, length=10))
+    assert ops.launch_counts() == {}
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels vs their plain versions, on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,d,dv,causal,window",
+    [
+        (1, 512, 512, 9, 3, 64, 64, True, None),  # smollm-135m prefill
+        (1, 300, 300, 9, 3, 64, 64, True, None),  # odd S
+        (2, 100, 300, 8, 2, 64, 64, True, None),  # Sq < Sk
+        (1, 256, 256, 6, 1, 32, 32, True, None),  # MQA
+        (2, 128, 128, 4, 2, 80, 80, True, 64),  # window, non-128 head dim
+        (1, 77, 150, 4, 4, 128, 256, False, None),  # Dv != D, non-causal
+    ],
+)
+def test_flash_attention_cuda_matches_plain(cuda, dtype, b, sq, sk, hq, hkv, d, dv, causal,
+                                            window):
+    (q, k, v), _ = _inputs(8, dtype, (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, dv))
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    before = ops.launch_counts().get("flash_attention", 0)
+    got = ops.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    want = tref.attention_ref(q, k, v, causal=causal, sliding_window=window)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "b,smax,hq,hkv,d,lens",
+    [
+        (8, 2048, 9, 3, 64, [1, 2048, 3000, 5, 700, 64, 65, 128]),  # smollm-135m
+        (2, 256, 8, 2, 64, [137, 137]),
+        (3, 128, 4, 1, 32, [1, 1, 1]),
+        (2, 256, 16, 2, 64, [200, 256]),
+    ],
+)
+def test_decode_attention_cuda_matches_plain(cuda, dtype, b, smax, hq, hkv, d, lens):
+    (q, k, v), _ = _inputs(9, dtype, (b, 1, hq, d), (b, smax, hkv, d), (b, smax, hkv, d))
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts().get("decode_attention", 0)
+    got = ops.decode_attention(q, k, v, length=length)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    want = tref.decode_attention_ref(q, k, v, length=length)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **_tol(dtype))
