@@ -5,22 +5,29 @@
 
 Phases, each of which passes or raises (any failure exits non-zero):
   1. the device, as nvidia-smi reports its name and power limit;
-  2. build every kernel of the serving path from kernels/csrc (nvcc, all
+  2. build every kernel of the serving paths from kernels/csrc (nvcc, all
      sources at once) and print the compiler's register/spill summary;
   3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes and at the reference test sweeps, within the
-     stated tolerance (bf16 2e-2, f32 2e-5, as atol and rtol);
-  4. the engine at full width: smollm-135m in bf16 with seeded random
-     weights serves 16 seeded requests through repro_torch.launch.serve's
-     engine path; the kernels' launch counts are zeroed just before and read
-     just after, and both kernels must have launched;
-  5. the engine on the card against the same weights in f32 on the CPU
-     (plain versions): prefill and one decode step's logits, and the number
-     of greedy tokens that agree;
-  6. a JSON ``kernels`` line: per kernel at the serving path's shapes its
+     serving paths' shapes and at the reference test sweeps, within the
+     stated tolerance (attention bf16 2e-2, f32 2e-5; SSD scan bf16 5e-2,
+     f32 5e-5 atol / 5e-4 rtol, the reference sweep's own);
+  4. three engine runs at full width through repro_torch.launch.serve's
+     engine path, each of 16 seeded requests with bf16 seeded random weights:
+     smollm-135m, zamba2-1.2b (Mamba-2 + shared attention), and smollm-135m
+     with an int8 KV cache (layers.set_kv_quant).  The kernels' launch counts
+     are zeroed just before each run and read just after; each run must
+     have launched the kernels of its path (zamba2: the SSD scan exactly
+     once per Mamba-2 layer per request; int8: only the int8 decode kernel);
+  5. smollm-135m and zamba2-1.2b on the card, in bf16 and with the same
+     weights in f32, against f32 on the CPU (plain versions): prefill and one
+     decode step's logits, and the number of greedy tokens that agree;
+  6. a JSON ``kernels`` line: per kernel at its serving path's shapes its
      launches in phase 4, its time, its plain version's time, one PyTorch
-     call's time (F.scaled_dot_product_attention, a yardstick the port never
-     calls) and the least time the card could take (bound_ms).
+     call's time where one computes the same function (the attention
+     kernels: F.scaled_dot_product_attention, a yardstick the port never
+     calls) and the least time the card could take (bound_ms).  The two
+     attention kernels serve smollm-135m and zamba2-1.2b at different head
+     layouts; their entries carry the zamba2 shapes' numbers under "zamba2".
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing any
 result.
@@ -40,14 +47,24 @@ import numpy as np
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
-TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+KERNELS = ["flash_attention", "decode_attention", "decode_attention_q8", "ssd_scan"]
+#: (atol, rtol) of a kernel against its plain version
+TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-5)}
+SSD_TOL = {"bfloat16": (5e-2, 5e-2), "float32": (5e-5, 5e-4)}  # tests/test_kernels.py's
 #: card (bf16) vs CPU (f32) logits: bf16 keeps 8 significant bits, about
-#: 0.2% per rounding; ~12 roundings per layer over 30 layers random-walk to
-#: ~4% of the logit scale, so allow 10% of the largest reference logit.
+#: 0.2% per rounding.  smollm-135m: ~12 roundings per layer over 30 layers;
+#: zamba2-1.2b: ~15 per Mamba-2 layer over 38 and ~12 per shared attention
+#: application over 6 (its recurrent state stays f32 on both sides).  Either
+#: random-walks to ~5% of the logit scale, so allow 10% of the largest
+#: reference logit.
 ENGINE_REL_TOL = 0.1
-SERVE_ARGS = ["--arch", "smollm-135m", "--device", "cuda", "--slots", "8", "--max-len", "2048",
-              "--requests", "16", "--prompt-len", "32", "701", "--min-new", "32",
-              "--max-new", "65", "--seed", "0"]
+#: card (f32, TF32 off) vs CPU (f32): the same math summed in another order,
+#: ~1e-7 relative per rounding; ~1e-5 of the logit scale after the layers,
+#: so 1e-3 leaves two orders of magnitude.
+ENGINE_F32_REL_TOL = 1e-3
+MIX = ["--device", "cuda", "--slots", "8", "--max-len", "2048", "--requests", "16",
+       "--prompt-len", "32", "701", "--min-new", "32", "--max-new", "65", "--seed", "0"]
+SMOLLM, ZAMBA2 = "smollm-135m", "zamba2-1.2b"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -59,13 +76,13 @@ def max_err(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def check_close(label: str, got, want, dtype_name: str) -> float:
+def check_close(label: str, got, want, dtype_name: str, tols=TOL) -> float:
     import torch
 
-    tol = TOL[dtype_name]
+    atol, rtol = tols[dtype_name]
     err = max_err(got, want)
-    ok = bool(torch.all((got.float() - want.float()).abs() <= tol + tol * want.float().abs()))
-    log(f"  {label}: max_abs_err={err:.3e} tol(atol=rtol)={tol:g} {'ok' if ok else 'FAIL'}")
+    ok = bool(torch.all((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()))
+    log(f"  {label}: max_abs_err={err:.3e} atol={atol:g} rtol={rtol:g} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: kernel disagrees with its plain version")
     return err
@@ -104,7 +121,7 @@ def phase_device():
 
 def phase_build(_build):
     t0 = time.perf_counter()
-    secs = _build.build(["flash_attention", "decode_attention"])
+    secs = _build.build(KERNELS)
     log(f"build: {time.perf_counter() - t0:.1f}s ({', '.join(f'{k} {v:.1f}s' for k, v in secs.items()) or 'cached'})")
     for lib in sorted(_build.BUILD_DIR.glob("*.log")):
         for line in lib.read_text().splitlines():
@@ -112,7 +129,7 @@ def phase_build(_build):
                 log(f"  {lib.stem}: {line.strip()}")
 
 
-def phase_kernels(torch, ref, fa, dec):
+def phase_kernels(torch, ref, fa, dec, q8, ssd):
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def rn(shape, dt):
@@ -123,6 +140,10 @@ def phase_kernels(torch, ref, fa, dec):
         # (label, dtype, B, Sq, Sk, Hq, Hkv, D, Dv, causal, window)
         ("smollm prefill S=512", "bfloat16", 1, 512, 512, 9, 3, 64, 64, True, None),
         ("smollm prefill S=1024", "bfloat16", 1, 1024, 1024, 9, 3, 64, 64, True, None),
+    ] + [
+        (f"zamba2 shared attention S={s_}", dn, 1, s_, s_, 32, 32, 64, 64, True, None)
+        for s_ in (32, 300, 700) for dn in ("bfloat16", "float32")
+    ] + [
         ("odd S=300", "bfloat16", 1, 300, 300, 9, 3, 64, 64, True, None),
         ("odd S=300", "float32", 1, 300, 300, 9, 3, 64, 64, True, None),
         ("Sq<Sk 100/300", "float32", 2, 100, 300, 8, 2, 64, 64, True, None),
@@ -150,6 +171,9 @@ def phase_kernels(torch, ref, fa, dec):
         ("smollm 8 slots, Smax=2048", "float32", 8, 2048, 9, 3, 64,
          [1, 2048, 2049, 5, 700, 64, 65, 128]),
         ("ragged", "float32", 4, 256, 8, 2, 64, [1, 64, 137, 256]),
+    ] + [
+        ("zamba2 8 slots, Smax=2048, G=1", dn, 8, 2048, 32, 32, 64,
+         [0, 2048, 3000, 1, 700, 64, 65, 33]) for dn in ("bfloat16", "float32")
     ]
     for dn in ("float32", "bfloat16"):  # tests/test_kernels.py decode sweep
         for b, smax, hq, hkv, d, n in [(2, 256, 8, 2, 64, 137), (1, 512, 4, 4, 64, 512),
@@ -167,14 +191,69 @@ def phase_kernels(torch, ref, fa, dec):
     check_close("decode_attention scalar length 300 bfloat16", dec.decode_attention_cuda(q, k, v, 300),
                 ref.decode_attention_ref(q, k, v, 300), "bfloat16")
 
+    q8_cases = [
+        ("smollm 8 slots, Smax=2048", dn, 8, 2048, 9, 3, 64, [1, 2048, 3000, 5, 700, 64, 65, 128])
+        for dn in ("bfloat16", "float32")
+    ]
+    for b, smax, hq, hkv, d, n in [(2, 256, 8, 2, 64, 137), (1, 512, 4, 4, 64, 512),
+                                   (2, 256, 16, 2, 64, 200)]:  # tests/test_kernels.py q8 sweep
+        q8_cases.append((f"sweep {b}x{smax}x{hq}/{hkv}x{d} len={n}", "float32", b, smax, hq, hkv,
+                         d, [n] * b))
+    q8_cases.append(("ragged", "float32", 3, 256, 8, 2, 64, [7, 256, 100]))
+    for label, dn, b, smax, hq, hkv, d, lens in q8_cases:
+        q = rn((b, 1, hq, d), dts[dn])
+        kq, ks = ref.quantize_kv(rn((b, smax, hkv, d), torch.float32))
+        vq, vs = ref.quantize_kv(rn((b, smax, hkv, d), torch.float32))
+        length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = q8.decode_attention_q8_cuda(q, kq, ks, vq, vs, length)
+        torch.cuda.synchronize()
+        check_close(f"decode_attention_q8 {label} {dn}", got,
+                    ref.decode_attention_q8_ref(q, kq, ks, vq, vs, length), dn)
 
-def phase_engine(torch, ops, serve):
-    log("engine at full width: " + " ".join(SERVE_ARGS))
-    args = serve.parse_args(SERVE_ARGS)
+    ssd_cases = [  # (label, dtype, B, S, H, P, N, initial state)
+        (f"zamba2 prefill S={s_}{' +h0' if h0 else ''}", dn, 1, s_, 32, 128, 64, h0)
+        for s_ in (32, 300, 700) for dn in ("bfloat16", "float32") for h0 in (False, True)
+    ]
+    for dn in ("float32", "bfloat16"):  # tests/test_kernels.py ssd sweep
+        for b, s_, h, p, n in [(1, 128, 2, 16, 8), (2, 256, 4, 32, 16), (1, 64, 8, 8, 64)]:
+            ssd_cases.append((f"sweep {b}x{s_}x{h}x{p}x{n}", dn, b, s_, h, p, n, False))
+    for label, dn, b, s_, h, p, n, with_h0 in ssd_cases:
+        x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dts[dn], b, s_, h, p, n)
+        h0 = rn((b, h, p, n), torch.float32) if with_h0 else None
+        y, hT = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, h0)
+        torch.cuda.synchronize()
+        wy, wh = ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0)
+        check_close(f"ssd_scan y {label} {dn}", y, wy, dn, SSD_TOL)
+        check_close(f"ssd_scan hT {label} {dn}", hT, wh, dn, SSD_TOL)
+
+
+def ssd_inputs(torch, gen, dtype, b, s, h, p, n):
+    """The reference sweep's inputs: x, B, C scaled by 0.5, dt = softplus(N(0,1))
+    in f32, A = -exp(0.3 N(0,1)) in f32."""
+    def rn(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = (rn((b, s, h, p)) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rn((b, s, h)))
+    A = -torch.exp(rn((h,)) * 0.3)
+    return x, dt, A, (rn((b, s, n)) * 0.5).to(dtype), (rn((b, s, n)) * 0.5).to(dtype)
+
+
+def phase_engine(torch, ops, serve, layers, arch: str, kv_quant: bool = False):
+    """One engine run of the request mix; launch counts zeroed just before
+    and read just after."""
+    argv = ["--arch", arch] + MIX
+    log(f"engine at full width{' (int8 KV cache)' if kv_quant else ''}: {' '.join(argv)}")
+    args = serve.parse_args(argv)
     torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    res = serve.run_engine(args)
-    counts = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    layers.set_kv_quant(kv_quant)
+    try:
+        ops.reset_launch_counts()
+        res = serve.run_engine(args)
+        counts = ops.launch_counts()
+    finally:
+        layers.set_kv_quant(False)
     st = res["stats"]
     reqs = serve.make_requests(args, res["bundle"].cfg.vocab_size)
     log(f"  {len(res['completions'])} completions, {res['tokens']} tokens in "
@@ -185,93 +264,119 @@ def phase_engine(torch, ops, serve):
     assert len(res["completions"]) == args.requests
     for c, r in zip(sorted(res["completions"], key=lambda c: int(c.rid[3:])), reqs):
         assert len(c.tokens) == r.max_new_tokens and c.finish_reason == "length", c.rid
-    for name in ("flash_attention", "decode_attention"):
-        if counts.get(name, 0) <= 0:
-            raise AssertionError(f"{name} never launched on the serving path")
     return res, counts, reqs
 
 
+def require(counts, name: str, ok: bool, want: str) -> None:
+    if not ok:
+        raise AssertionError(f"{name} launched {counts.get(name, 0)} times, expected {want}")
+
+
+def phase_engines(torch, ops, serve, layers):
+    runs = {}
+    res, counts, reqs = phase_engine(torch, ops, serve, layers, SMOLLM)
+    for name in ("flash_attention", "decode_attention"):
+        require(counts, name, counts.get(name, 0) > 0, "> 0")
+    runs[SMOLLM] = (res, counts, reqs)
+
+    res, counts, reqs = phase_engine(torch, ops, serve, layers, ZAMBA2)
+    model = res["bundle"].model
+    n_mamba = sum(n for kind, n in model._groups() if kind == "mamba2")
+    n_req = len(reqs)
+    require(counts, "ssd_scan", counts.get("ssd_scan", 0) == n_req * n_mamba,
+            f"{n_req} x {n_mamba}")
+    require(counts, "flash_attention", counts.get("flash_attention", 0) ==
+            n_req * model.n_shared_apps, f"{n_req} x {model.n_shared_apps}")
+    require(counts, "decode_attention", counts.get("decode_attention", 0) > 0, "> 0")
+    runs[ZAMBA2] = (res, counts, reqs)
+
+    res, counts, reqs = phase_engine(torch, ops, serve, layers, SMOLLM, kv_quant=True)
+    require(counts, "decode_attention_q8", counts.get("decode_attention_q8", 0) > 0, "> 0")
+    require(counts, "decode_attention", counts.get("decode_attention", 0) == 0, "0")
+    require(counts, "flash_attention", counts.get("flash_attention", 0) > 0, "> 0")
+    runs["smollm-135m int8-KV"] = (res, counts, reqs)
+    return runs
+
+
 def phase_vs_cpu(torch, res, Engine, EngineConfig, Request, bundle, tree_map):
+    """The card's bf16 run and the same weights in f32 on the card, each
+    against f32 on the CPU (plain versions): the f32 pair shows what the
+    port computes, the bf16 pair adds bf16 rounding."""
     mb, params = res["bundle"], res["params"]
-    cfg32 = dataclasses.replace(mb.cfg, dtype="float32")
-    mb32 = bundle(cfg32)
+    log(f"{mb.cfg.name} on the card vs the same weights in f32 on the CPU:")
+    mb32 = bundle(dataclasses.replace(mb.cfg, dtype="float32"))
     params32 = tree_map(lambda t: t.float().cpu(), params)
     prompt = list(map(int, np.random.default_rng(7).integers(1, mb.cfg.vocab_size, size=100)))
-    toks = torch.tensor([prompt])
-    with torch.no_grad():
-        lg, cg = mb.prefill_fn(params, {"tokens": toks.cuda()}, max_len=256)
-        lc, cc = mb32.prefill_fn(params32, {"tokens": toks}, max_len=256)
-        nxt = torch.argmax(lg[0, -1]).view(1, 1)
-        dg, _ = mb.decode_fn(params, cg, nxt.cuda(), torch.tensor(len(prompt), device="cuda"))
-        dc, _ = mb32.decode_fn(params32, cc, nxt.cpu(), torch.tensor(len(prompt)))
-    worst = 0.0
-    for label, got, want in (("prefill", lg, lc), ("decode step", dg, dc)):
-        err = max_err(got.cpu(), want)
-        scale = float(want.abs().max())
-        worst = max(worst, err / scale)
-        log(f"  card bf16 vs cpu f32 {label} logits: max_abs_err={err:.4f}, max|logit|={scale:.3f}, "
-            f"rel={err / scale:.4f} tol={ENGINE_REL_TOL}")
-        if err > ENGINE_REL_TOL * scale:
-            raise AssertionError(f"{label} logits on the card disagree with the CPU")
     n_new = 24
-    outs = []
-    for p, dev in ((params, "cuda"), (params32, "cpu")):
-        eng = Engine(mb if dev == "cuda" else mb32, p, EngineConfig(max_slots=2, max_len=256))
+    runs = {}  # (bundle, params, device) -> (prefill logits, decode logits, greedy tokens)
+    for key, b_, p_, dev in (("cpu f32", mb32, params32, "cpu"),
+                             ("card bf16", mb, params, "cuda"),
+                             ("card f32", mb32, tree_map(lambda t: t.cuda(), params32), "cuda")):
+        toks = torch.tensor([prompt], device=dev)
+        with torch.no_grad():
+            lg, cg = b_.prefill_fn(p_, {"tokens": toks}, max_len=256)
+            nxt = runs["cpu f32"][0][0, -1].argmax().view(1, 1) if runs else \
+                torch.argmax(lg[0, -1]).view(1, 1)
+            dg, _ = b_.decode_fn(p_, cg, nxt.to(dev), torch.tensor(len(prompt), device=dev))
+        eng = Engine(b_, p_, EngineConfig(max_slots=2, max_len=256))
         eng.submit(Request(rid="g", prompt=prompt, max_new_tokens=n_new))
-        outs.append(eng.run()[0].tokens)
-    agree = next((i for i, (a, b) in enumerate(zip(*outs)) if a != b), n_new)
-    log(f"  greedy tokens agreeing before the first difference: {agree} of {n_new}")
-    return worst, agree
+        runs[key] = (lg.cpu(), dg.cpu(), eng.run()[0].tokens)
+        del p_, eng
+    lc, dc, tc = runs["cpu f32"]
+    for key, tol in (("card bf16", ENGINE_REL_TOL), ("card f32", ENGINE_F32_REL_TOL)):
+        lg, dg, tg = runs[key]
+        for label, got, want in (("prefill", lg, lc), ("decode step", dg, dc)):
+            err = max_err(got, want)
+            scale = float(want.abs().max())
+            log(f"  {key} vs cpu f32 {label} logits: max_abs_err={err:.3e}, "
+                f"max|logit|={scale:.3f}, rel={err / scale:.3e} tol={tol:g}")
+            if err > tol * scale:
+                raise AssertionError(f"{key} {label} logits disagree with the CPU")
+        agree = next((i for i, (a, b) in enumerate(zip(tg, tc)) if a != b), n_new)
+        log(f"  {key} vs cpu f32 greedy tokens agreeing before the first difference: "
+            f"{agree} of {n_new}")
 
 
-def phase_timing(torch, F, ref, fa, dec, counts, reqs):
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    bf = torch.bfloat16
-    entries = []
+def bound(nbytes: int, flops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
-    # --- flash attention at the largest prefill bucket of the run ---------
-    s = max(1 << (len(r.prompt) - 1).bit_length() for r in reqs)
-    b, hq, hkv, d = 1, 9, 3, 64
+
+def time_flash(torch, F, ref, fa, gen, s, hq, hkv, d=64, b=1):
+    """flash_attention on bf16 q (b,s,hq,d), k/v (b,s,hkv,d), causal."""
     shapes = ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))
     per_set = sum(math.prod(x) for x in shapes) * 2 + b * s * hq * d * 2
-    sets = [tuple(torch.randn(x, generator=gen, device="cuda").to(bf) for x in shapes)
-            for _ in range(copies_past_l2(per_set))]
+    sets = [tuple(torch.randn(x, generator=gen, device="cuda").to(torch.bfloat16)
+                  for x in shapes) for _ in range(copies_past_l2(per_set))]
     pairs = s * (s + 1) // 2  # causal (q, k) pairs per head
-    flops = 2 * b * hq * pairs * (d + d)
     q, k, v = sets[0]
-    entries.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:90",
+    return dict(
         shape=f"q({b},{s},{hq},{d}) kv({b},{s},{hkv},{d}) bf16 causal",
-        launches=counts.get("flash_attention", 0),
         max_abs_err=max_err(fa.flash_attention_cuda(q, k, v, True), ref.attention_ref(q, k, v, True)),
         ms=time_ms(lambda q, k, v: fa.flash_attention_cuda(q, k, v, True), sets),
         plain_ms=time_ms(lambda q, k, v: ref.attention_ref(q, k, v, True), sets),
         library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
             enable_gqa=True), sets),
-        bytes=per_set, flops=flops,
-    ))
+        **bound(per_set, 2 * b * hq * pairs * (d + d)),
+    )
 
-    # --- decode attention: 8 slots mid-generation of the run's requests ----
-    bsz, smax = 8, 2048
-    lens = [len(r.prompt) + r.max_new_tokens // 2 for r in reqs[:bsz]]
+
+def time_decode(torch, F, ref, dec, gen, lens, hq, hkv, d=64, smax=2048):
+    """decode_attention on bf16 q (B,1,hq,d) against a (B,smax,hkv,d) cache
+    at per-slot lengths ``lens``; bytes count only the rows up to each length."""
+    bsz = len(lens)
     shapes = ((bsz, 1, hq, d), (bsz, smax, hkv, d), (bsz, smax, hkv, d))
-    kv_bytes = sum(lens) * hkv * (d + d) * 2
-    per_set = kv_bytes + 2 * bsz * hq * d * 2 + bsz * 4
+    per_set = sum(lens) * hkv * (d + d) * 2 + 2 * bsz * hq * d * 2 + bsz * 4
     length = torch.tensor(lens, dtype=torch.int32, device="cuda")
     mask = (torch.arange(smax, device="cuda")[None, :] < length[:, None])[:, None, None, :]
-    n_sets = copies_past_l2(bsz * smax * hkv * d * 2 * 2)
-    sets = [tuple(torch.randn(x, generator=gen, device="cuda").to(bf) for x in shapes)
-            for _ in range(n_sets)]
+    sets = [tuple(torch.randn(x, generator=gen, device="cuda").to(torch.bfloat16) for x in shapes)
+            for _ in range(copies_past_l2(bsz * smax * hkv * d * 2 * 2))]
     q, k, v = sets[0]
-    entries.append(dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:71",
+    return dict(
         shape=f"q({bsz},1,{hq},{d}) cache({bsz},{smax},{hkv},{d}) bf16 lengths {lens}",
-        launches=counts.get("decode_attention", 0),
         max_abs_err=max_err(dec.decode_attention_cuda(q, k, v, length),
                             ref.decode_attention_ref(q, k, v, length)),
         ms=time_ms(lambda q, k, v: dec.decode_attention_cuda(q, k, v, length), sets),
@@ -279,13 +384,113 @@ def phase_timing(torch, F, ref, fa, dec, counts, reqs):
         library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
             enable_gqa=True), sets),
-        bytes=per_set, flops=2 * hq * sum(lens) * (d + d),
+        **bound(per_set, 2 * hq * sum(lens) * (d + d)),
+    )
+
+
+def phase_timing(torch, F, ref, fa, dec, q8, ssd, runs):
+    """Each kernel at its serving path's shapes.  The attention kernels run on
+    two paths with different head layouts, so their entries also carry the
+    zamba2-1.2b shapes (``zamba2``, with that run's launches)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    bf = torch.bfloat16
+    entries = []
+    _, counts, reqs = runs[SMOLLM]
+    zres, z_counts, z_reqs = runs[ZAMBA2]
+    zcfg = zres["bundle"].cfg
+    by_path = {k: {n: c.get(n, 0) for n in KERNELS} for k, (_, c, _) in runs.items()}
+    hq, hkv, d = 9, 3, 64
+    z_heads = (zcfg.n_heads, zcfg.n_kv_heads, zcfg.head_dim_)
+
+    # --- flash attention at the largest prefill of each path: smollm's
+    # power-of-two bucket, zamba2's exact length (recurrent archs are not padded)
+    s = max(1 << (len(r.prompt) - 1).bit_length() for r in reqs)
+    entries.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:90",
+        launches=counts.get("flash_attention", 0), launches_path=SMOLLM,
+        **time_flash(torch, F, ref, fa, gen, s, hq, hkv, d),
+        zamba2=dict(launches=z_counts.get("flash_attention", 0),
+                    **time_flash(torch, F, ref, fa, gen, max(len(r.prompt) for r in z_reqs),
+                                 *z_heads)),
     ))
+
+    # --- decode attention: 8 slots mid-generation of the run's requests ----
+    bsz, smax = 8, 2048
+    lens = [len(r.prompt) + r.max_new_tokens // 2 for r in reqs[:bsz]]
+    z_lens = [len(r.prompt) + r.max_new_tokens // 2 for r in z_reqs[:bsz]]
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    entries.append(dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:71",
+        launches=counts.get("decode_attention", 0), launches_path=SMOLLM,
+        **time_decode(torch, F, ref, dec, gen, lens, hq, hkv, d, smax),
+        zamba2=dict(launches=z_counts.get("decode_attention", 0),
+                    **time_decode(torch, F, ref, dec, gen, z_lens, *z_heads, smax)),
+    ))
+
+    # --- int8 decode attention: the same 8 slots over an int8 cache ---------
+    _, q8_counts, _ = runs["smollm-135m int8-KV"]
+    kv_bytes = sum(lens) * hkv * ((d + d) * 1 + 2 * 4)  # int8 rows + f32 scales
+    per_set = kv_bytes + 2 * bsz * hq * d * 2 + bsz * 4
+    n_sets = copies_past_l2(bsz * smax * hkv * (d * 2 + 8))
+
+    def q8_set():
+        kq, ks = ref.quantize_kv(torch.randn((bsz, smax, hkv, d), generator=gen, device="cuda"))
+        vq, vs = ref.quantize_kv(torch.randn((bsz, smax, hkv, d), generator=gen, device="cuda"))
+        return (torch.randn((bsz, 1, hq, d), generator=gen, device="cuda").to(bf), kq, ks, vq, vs)
+
+    sets = [q8_set() for _ in range(n_sets)]
+    entries.append(dict(
+        name="decode_attention_q8", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention_q8.cu",
+        replaces="src/repro/kernels/decode_attention.py:171",
+        shape=f"q({bsz},1,{hq},{d}) bf16, int8 cache({bsz},{smax},{hkv},{d}) + f32 scales, "
+              f"lengths {lens}",
+        launches=q8_counts.get("decode_attention_q8", 0), launches_path="smollm-135m int8-KV",
+        max_abs_err=max_err(q8.decode_attention_q8_cuda(*sets[0], length),
+                            ref.decode_attention_q8_ref(*sets[0], length)),
+        ms=time_ms(lambda *a: q8.decode_attention_q8_cuda(*a, length), sets),
+        plain_ms=time_ms(lambda *a: ref.decode_attention_q8_ref(*a, length), sets),
+        library_ms=None,  # no single PyTorch call computes attention over an int8 cache
+        **bound(per_set, 2 * hq * sum(lens) * (d + d)),
+    ))
+    del sets
+
+    # --- SSD scan at the longest zamba2 prefill of the run ------------------
+    h, p, n = zcfg.ssm_heads, zcfg.ssm_expand * zcfg.d_model // zcfg.ssm_heads, zcfg.ssm_state
+    s = max(len(r.prompt) for r in z_reqs)  # recurrent prefills run at their exact length
+    b = 1
+    per_set = (b * s * h * p * 2 * 2 + b * s * h * 4 + h * 4 + b * s * n * 2 * 2
+               + b * h * p * n * 4 * 2)  # x, y; dt; A; B, C; h0, hT
+    n_sets = copies_past_l2(per_set)
+    sets = [ssd_inputs(torch, gen, bf, b, s, h, p, n)
+            + (torch.zeros((b, h, p, n), device="cuda"),) for _ in range(n_sets)]
+    tile = 64  # the kernel's time tile
+    pairs = sum(c * (c + 1) // 2 for c in [tile] * (s // tile) + ([s % tile] if s % tile else []))
+    # C.B per chunk pair (shared by the heads), w @ x, and per step C h^T plus
+    # the state update (2 P N each), per head
+    flops = b * (2 * pairs * n + h * (2 * pairs * p + 4 * s * p * n))
+    y, hT = ssd.ssd_scan_cuda(*sets[0])
+    wy, wh = ref.ssd_scan_ref(*sets[0])
+    entries.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:81",
+        shape=f"x({b},{s},{h},{p}) bf16, B/C({b},{s},{n}) bf16, dt f32, h0 zeros f32",
+        launches=z_counts.get("ssd_scan", 0), launches_path=ZAMBA2,
+        max_abs_err=max(max_err(y, wy), max_err(hT, wh)),
+        ms=time_ms(lambda *a: ssd.ssd_scan_cuda(*a), sets),
+        plain_ms=time_ms(lambda *a: ref.ssd_scan_ref(*a), sets, iters=3),
+        library_ms=None,  # no single PyTorch call computes a selective scan
+        **bound(per_set, flops),
+    ))
+    del sets
+
     for e in entries:
-        t_bytes = e["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = e["flops"] / BF16_FLOPS * 1e3
-        e["bound_ms"] = max(t_bytes, t_ops)
-        e["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        e["launches_by_path"] = {k: v[e["name"]] for k, v in by_path.items()}
         e["kernel_ms"] = e["ms"]
     return entries
 
@@ -300,9 +505,11 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build, decode_attention as dec, flash_attention as fa, ops, ref
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import decode_attention as dec, decode_attention_q8 as q8
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ssd
     from repro_torch.launch import serve
-    from repro_torch.models import bundle
+    from repro_torch.models import bundle, layers
     from repro_torch.serving import Engine, EngineConfig, Request
     from repro_torch.tree import tree_map
 
@@ -311,15 +518,20 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build(_build)
-    phase_kernels(torch, ref, fa, dec)
-    res, counts, reqs = phase_engine(torch, ops, serve)
-    log("engine on the card vs the same weights in f32 on the CPU:")
-    phase_vs_cpu(torch, res, Engine, EngineConfig, Request, bundle, tree_map)
-    entries = phase_timing(torch, F, ref, fa, dec, counts, reqs)
+    phase_kernels(torch, ref, fa, dec, q8, ssd)
+    runs = phase_engines(torch, ops, serve, layers)
+    for arch in (SMOLLM, ZAMBA2):
+        phase_vs_cpu(torch, runs[arch][0], Engine, EngineConfig, Request, bundle, tree_map)
+    entries = phase_timing(torch, F, ref, fa, dec, q8, ssd, runs)
     for e in entries:
-        log(f"  {e['name']}: {e['ms']:.4f} ms (bound {e['bound_ms']:.5f} ms by {e['bound_by']}, "
-            f"plain {e['plain_ms']:.4f} ms, sdpa {e['library_ms']:.4f} ms), "
-            f"{e['launches']} launches in the engine run")
+        for path, t in [(e["launches_path"], e)] + ([(ZAMBA2, e["zamba2"])] if "zamba2" in e
+                                                     else []):
+            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+            log(f"  {e['name']} {t['shape']}: {t['ms']:.4f} ms (bound {t['bound_ms']:.5f} ms "
+                f"by {t['bound_by']}, plain {t['plain_ms']:.4f} ms, library {lib}), "
+                f"{t['launches']} launches in the {path} run")
+    for arch, (res, _, _) in runs.items():
+        log(f"  engine {arch}: {res['tok_per_s']:.1f} tok/s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,8 +6,9 @@ with ``jax.tree.map(np.asarray, params)``) and returns the port's parameter
 tree on ``device``.  Both trees share one layout, stacked per-group weights
 with a leading L dimension and weights ``(d_in, d_out)``, so each leaf is a
 plain copy: no transpose.  Every leaf of either tree must be matched with
-the same shape, or this raises.  bf16 leaves go through float32, which is
-exact.
+the same shape, or this raises.  Each leaf takes its dtype from the port's
+``param_specs`` (the config's dtype, or f32 for the f32 leaves of Mamba-2);
+bf16 leaves go through float32, which is exact.
 """
 from __future__ import annotations
 
@@ -43,11 +44,10 @@ def params_to_torch(np_params: Dict[str, Any], cfg: ArchConfig, device="cuda"):
             return [walk(v, s, f"{path}/{i}") for i, (v, s) in enumerate(zip(spec, src))]
         if src is None:
             raise ValueError(f"{path}: missing from the reference parameters")
-        shape = tuple(spec[0])
         arr = np.asarray(src).astype(np.float32)  # exact for bf16 leaves
-        if arr.shape != shape:
-            raise ValueError(f"{path}: shape {arr.shape}, the port expects {shape}")
-        return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+        if arr.shape != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {arr.shape}, the port expects {spec.shape}")
+        return torch.from_numpy(arr).to(device=dev, dtype=spec.dtype or dtype)
 
     out = walk(param_specs(cfg), np_params, "")
     if unmatched:

@@ -1,8 +1,10 @@
-"""Hand-written Hopper kernels for the served model's attention.
+"""Hand-written Hopper kernels of the serving path.
 
 kernels:
-  flash_attention  — prefill attention (GQA, causal, sliding window, Sq != Sk)
-  decode_attention — flash-decoding, one token vs the KV cache (GQA packing)
+  flash_attention     — prefill attention (GQA, causal, sliding window, Sq != Sk)
+  decode_attention    — flash-decoding, one token vs the KV cache (GQA packing)
+  decode_attention_q8 — the same over an int8 KV cache with per-(token, head) scales
+  ssd_scan            — chunked Mamba-2 SSD scan (any sequence length)
 
 Each is CUDA C++ under ``csrc/`` built for ``sm_90a`` at first use
 (``_build.py``), with its plain PyTorch version in ``ref.py``; ``ops.py`` is the

@@ -11,11 +11,13 @@ import torch
 
 from ._build import launch_counts, reset_launch_counts
 from .decode_attention import decode_attention
+from .decode_attention_q8 import decode_attention_q8
 from .flash_attention import flash_attention
+from .ssd_scan import ssd_scan
 
 __all__ = [
-    "flash_attention", "decode_attention", "cross_attention",
-    "launch_counts", "reset_launch_counts",
+    "flash_attention", "decode_attention", "decode_attention_q8", "cross_attention",
+    "ssd_scan", "launch_counts", "reset_launch_counts",
 ]
 
 

@@ -1,5 +1,4 @@
-"""Plain PyTorch versions of the attention kernels: naive, obviously-correct
-math.  They are the CPU execution path and the oracle that every CUDA kernel
+"""Plain PyTorch versions of the kernels: naive, obviously-correct math.  They are the CPU execution path and the oracle that every CUDA kernel
 is held against on the card.  Counterpart of ``repro/kernels/ref.py``."""
 from __future__ import annotations
 
@@ -7,7 +6,10 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["attention_ref", "decode_attention_ref"]
+__all__ = [
+    "attention_ref", "decode_attention_ref", "quantize_kv", "decode_attention_q8_ref",
+    "ssd_scan_ref",
+]
 
 _NEG = -1e30
 
@@ -56,7 +58,9 @@ def decode_attention_ref(
     Valid cache slots are ``arange(Smax) < min(length, Smax)``; ``length`` is
     a scalar (uniform batch) or a (B,) tensor (ragged continuous batching).
     Scores accumulate in f32; the probabilities are cast to v's dtype before
-    the PV product, as in the reference oracle.
+    the PV product, as in the reference oracle.  A sequence with no valid
+    slot (length <= 0) gets zeros, as the kernels give it (the reference
+    oracle would average the whole cache there).
     """
     b, sq, hq, d = q.shape
     smax, hkv = k.shape[1], k.shape[2]
@@ -72,4 +76,60 @@ def decode_attention_ref(
     p = torch.exp(scores - scores.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    out = out * (lim > 0).to(out.dtype)[:, None, None, None, None]
     return out.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def quantize_kv(k: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization of a KV tensor.
+
+    k (B,S,Hkv,D) -> (q int8 (B,S,Hkv,D), scale f32 (B,S,Hkv)).  Rounds half
+    to even, as the reference does."""
+    kf = k.float()
+    scale = kf.abs().amax(-1).clamp(min=1e-8) / 127.0
+    q = torch.round(kf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def decode_attention_q8_ref(
+    q: torch.Tensor,  # (B,1,Hq,D)
+    k_q: torch.Tensor,  # (B,Smax,Hkv,D) int8
+    k_s: torch.Tensor,  # (B,Smax,Hkv) f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    length: Union[int, torch.Tensor],
+) -> torch.Tensor:
+    """int8-KV decode: dequantize the whole cache, then the fp decode."""
+    k = k_q.float() * k_s[..., None]
+    v = v_q.float() * v_s[..., None]
+    return decode_attention_ref(q, k, v, length)
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    B: torch.Tensor,
+    C: torch.Tensor,
+    initial_state: Optional[torch.Tensor] = None,
+):
+    """Mamba-2 SSD as the naive sequential recurrence.
+
+    x (Bt,S,H,P)  dt (Bt,S,H)  A (H,) negative  B,C (Bt,S,N)
+    state h (Bt,H,P,N):  h_t = exp(A*dt_t) h_{t-1} + dt_t * x_t B_t^T
+                         y_t = h_t C_t
+    Returns y (Bt,S,H,P) in x's dtype and the final state in f32.
+    """
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf, Af = x.float(), dt.float(), B.float(), C.float(), A.float()
+    state = (torch.zeros((bt, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(Af[None, :] * dtf[:, t])  # (Bt,H)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+        state = state * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
+    y = torch.stack(ys, 1) if ys else xf.new_zeros((bt, 0, h, p))
+    return y.to(x.dtype), state

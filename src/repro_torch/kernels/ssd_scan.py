@@ -1,0 +1,88 @@
+"""Chunked Mamba-2 SSD scan: wrapper of ``csrc/ssd_scan.cu``.
+
+Counterpart of ``repro/kernels/ssd_scan.py`` (``ssd_scan_pallas``).
+``ssd_scan`` launches the CUDA kernel for a CUDA tensor and takes the plain
+version (``ref.ssd_scan_ref``) only for a CPU tensor.  The kernel picks its
+own time tile and takes any sequence length.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from . import _build
+from .ref import ssd_scan_ref
+
+__all__ = ["ssd_scan", "ssd_scan_cuda", "NAME"]
+
+NAME = "ssd_scan"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "ssd_scan_fwd": [_P] * 8 + [_I] * 6 + [_L] * 6 + [_P],
+}
+_MAX_N = 128
+
+
+def ssd_scan_cuda(
+    x: torch.Tensor,  # (Bt, S, H, P); (H, P) contiguous, any batch/sequence strides
+    dt: torch.Tensor,  # (Bt, S, H) f32, contiguous
+    A: torch.Tensor,  # (H,) f32
+    B: torch.Tensor,  # (Bt, S, N); N contiguous
+    C: torch.Tensor,  # (Bt, S, N); N contiguous
+    initial_state: Optional[torch.Tensor] = None,  # (Bt, H, P, N) f32, contiguous
+):
+    """Returns y (Bt, S, H, P) in x's dtype and the final state (Bt, H, P, N) f32.
+    Raises on a layout the kernel does not take; never copies to make one."""
+    bt, s, h, p = x.shape
+    n = B.shape[-1]
+    tensors = [x, dt, A, B, C] + ([initial_state] if initial_state is not None else [])
+    if not (x.is_cuda and all(t.device == x.device for t in tensors)):
+        raise ValueError("ssd_scan_cuda: every input must be on one CUDA device")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"ssd_scan_cuda: x, B, C float32 or bfloat16 alike, got "
+                        f"{x.dtype}/{B.dtype}/{C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"ssd_scan_cuda: dt and A must be float32, got {dt.dtype}/{A.dtype}")
+    if (dt.shape != (bt, s, h) or A.shape != (h,) or B.shape != (bt, s, n)
+            or C.shape != (bt, s, n)):
+        raise ValueError(f"ssd_scan_cuda: bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
+                         f"A{tuple(A.shape)} B{tuple(B.shape)} C{tuple(C.shape)}")
+    if not 0 < n <= _MAX_N:
+        raise ValueError(f"ssd_scan_cuda: state size N={n} outside (0, {_MAX_N}]")
+    if x.stride(3) != 1 or x.stride(2) != p:
+        raise ValueError("ssd_scan_cuda: x needs contiguous (H, P) rows")
+    if B.stride(2) != 1 or C.stride(2) != 1:
+        raise ValueError("ssd_scan_cuda: B and C need contiguous N")
+    if not (dt.is_contiguous() and A.is_contiguous()):
+        raise ValueError("ssd_scan_cuda: dt and A must be contiguous")
+    if initial_state is not None:
+        if initial_state.dtype != torch.float32 or initial_state.shape != (bt, h, p, n):
+            raise ValueError(f"ssd_scan_cuda: initial_state must be float32 {(bt, h, p, n)}, "
+                             f"got {initial_state.dtype} {tuple(initial_state.shape)}")
+        if not initial_state.is_contiguous():
+            raise ValueError("ssd_scan_cuda: initial_state must be contiguous")
+    lib = _build.load(NAME, _SIGNATURES)
+    y = torch.empty((bt, s, h, p), dtype=x.dtype, device=x.device)
+    h_t = torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
+    _build.launch(
+        NAME, lib.ssd_scan_fwd,
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        initial_state.data_ptr() if initial_state is not None else None,
+        y.data_ptr(), h_t.data_ptr(), _DTYPES[x.dtype], bt, s, h, p, n,
+        x.stride(0), x.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return y, h_t
+
+
+def ssd_scan(x, dt, A, B, C, initial_state=None):
+    """CUDA tensor: the hand-written kernel (or an error).  CPU tensor: the
+    plain version."""
+    if x.is_cuda:
+        return ssd_scan_cuda(x, dt, A, B, C, initial_state)
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B, C, initial_state)
+    raise ValueError(f"ssd_scan: unsupported device {x.device}")

@@ -3,7 +3,11 @@ request stream.  Counterpart of ``repro/launch/serve.py`` (engine mode; the
 placement-integrated cluster mode is not ported yet).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+An int8 KV cache is switched on through ``models.layers.set_kv_quant(True)``
+before ``main`` / ``run_engine``, as in the reference (no CLI switch).
 
 Weights are random, drawn from a ``torch.Generator`` seeded with ``--seed``.
 Prompt lengths are drawn from ``[--prompt-len LO HI)`` (default

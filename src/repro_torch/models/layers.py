@@ -6,6 +6,9 @@ reference layout: weights are ``(d_in, d_out)`` and applied as ``x @ W``;
 caches are ``(B, Smax, Hkv, D)``.  Attention routes through
 ``kernels.ops``, so a CUDA tensor runs the hand-written kernels and a CPU
 tensor the plain versions.  Norms and logits are computed in f32.
+
+``set_kv_quant(True)`` makes caches built afterwards hold int8 K/V with an
+f32 scale per (token, head), as the reference's switch of the same name.
 """
 from __future__ import annotations
 
@@ -16,8 +19,20 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops as kops
+from ..kernels.ref import quantize_kv
 
 Params = Dict[str, Any]
+
+#: int8 KV-cache quantization, read when a cache is built (non-ring GQA caches)
+_KV_QUANT = {"enabled": False}
+
+
+def set_kv_quant(enabled: bool) -> None:
+    _KV_QUANT["enabled"] = bool(enabled)
+
+
+def kv_quant_enabled() -> bool:
+    return _KV_QUANT["enabled"]
 
 
 def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1e-5):
@@ -85,10 +100,12 @@ def attention(
     """GQA self-attention.
 
     cache: None (no cache) or {"k","v" (B,Smax,Hkv,Dh), "index"} views into
-    the model's stacked cache.  ``index`` is a scalar (uniform batch) or a
+    the model's stacked cache, plus {"k_s","v_s" (B,Smax,Hkv) f32} when k/v
+    are int8 (``set_kv_quant``).  ``index`` is a scalar (uniform batch) or a
     (B,) tensor (ragged continuous batching).  Where the reference returns a
     new cache, this updates the given tensors in place: the new K/V rows are
-    written and ``index`` advances by the number of tokens.
+    written (quantized for an int8 cache) and ``index`` advances by the
+    number of tokens.
     """
     hd = cfg.head_dim_
     b, s, _ = x.shape
@@ -102,28 +119,39 @@ def attention(
     if cache is None:
         out = kops.flash_attention(q, k, v, causal=True, sliding_window=cfg.sliding_window)
     else:
-        ck, cv, idx = cache["k"], cache["v"], cache["index"]
-        smax = ck.shape[1]
+        idx = cache["index"]
+        quant = "k_s" in cache
+        if quant:
+            (k_w, ks_w), (v_w, vs_w) = quantize_kv(k), quantize_kv(v)
+            rows = ((cache["k"], k_w), (cache["v"], v_w), (cache["k_s"], ks_w),
+                    (cache["v_s"], vs_w))
+        else:
+            rows = ((cache["k"], k), (cache["v"], v))
+        smax = cache["k"].shape[1]
         if idx.dim() == 1:
             # ragged decode (s == 1): per-slot write position, clamped so an
             # idle slot whose index has run past the end rewrites the last row
             wr = idx.clamp(max=smax - 1).long()
             bix = torch.arange(b, device=x.device)
-            ck[bix, wr] = k[:, 0].to(ck.dtype)
-            cv[bix, wr] = v[:, 0].to(cv.dtype)
+            for dst, src in rows:
+                dst[bix, wr] = src[:, 0].to(dst.dtype)
         else:
             # uniform write of s rows at index (clamped to fit, like
             # dynamic_update_slice); no host sync on the index
             pos = idx.clamp(max=smax - s).long() + torch.arange(s, device=x.device)
-            ck.index_copy_(1, pos, k.to(ck.dtype))
-            cv.index_copy_(1, pos, v.to(cv.dtype))
-        if s == 1:
-            out = kops.decode_attention(q, ck, cv, length=idx + 1)
-        else:
-            # prefill from an empty cache: causal attention over the fresh block
+            for dst, src in rows:
+                dst.index_copy_(1, pos, src.to(dst.dtype))
+        if s > 1:
+            # prefill from an empty cache: causal attention over the fresh
+            # full-precision block
             out = kops.flash_attention(
                 q, k, v, causal=True, sliding_window=cfg.sliding_window
             )
+        elif quant:
+            out = kops.decode_attention_q8(q, cache["k"], cache["k_s"], cache["v"],
+                                           cache["v_s"], length=idx + 1)
+        else:
+            out = kops.decode_attention(q, cache["k"], cache["v"], length=idx + 1)
         idx.add_(s)
     return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
 

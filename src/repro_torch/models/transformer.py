@@ -1,24 +1,28 @@
-"""Decoder-only dense LM: the trunk the served replica runs.
+"""Decoder-only LM over dense GQA attention and Mamba-2 blocks, with Zamba2's
+weight-shared attention block: the trunk the served replica runs.
 Counterpart of ``repro/models/transformer.py``.
 
 Layers of one kind are stacked with a leading L dimension, exactly as in the
 reference's parameter and cache pytrees, so weights bridge over as plain
-copies.  Where the reference runs ``jax.lax.scan`` over the stack, this runs
-a Python loop over its rows.  The same ``forward`` serves three modes:
+copies.  Hybrids split their runs at shared-attention boundaries, as the
+reference does.  Where the reference runs ``jax.lax.scan`` over a stack,
+this runs a Python loop over its rows.  The same ``forward`` serves three
+modes:
   * no cache — full-sequence causal
-  * prefill  — full-sequence causal, K/V written into the cache in place
+  * prefill  — full-sequence causal, K/V and recurrent state written into
+               the cache in place
   * decode   — one token per sequence against the cache, in place
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from . import layers
+from . import layers, ssm
 
 Params = Dict[str, Any]
 
@@ -30,21 +34,20 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port covers the dense GQA decoder; everything else is still only
-    in the reference package."""
+    """The port covers dense GQA decoders and Mamba-2 hybrids with a shared
+    attention block; everything else is still only in the reference package."""
     missing = []
     if cfg.attention != "gqa":
         missing.append(f"attention={cfg.attention}")
     if cfg.n_experts:
         missing.append("MoE")
-    if cfg.is_recurrent:
-        missing.append("recurrent blocks")
+    other = sorted(set(cfg.block_pattern) - {"attn", "mamba2"})
+    if other:
+        missing.append(f"{'/'.join(other)} blocks")
     if cfg.enc_dec:
         missing.append("encoder-decoder")
     if cfg.frontend:
         missing.append(f"{cfg.frontend} frontend")
-    if cfg.shared_attn_every:
-        missing.append("shared attention")
     if cfg.sliding_window:
         missing.append("sliding-window ring cache")
     if cfg.mtp_depth:
@@ -55,13 +58,25 @@ def check_supported(cfg: ArchConfig) -> None:
         )
 
 
-def _block_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device, ragged: bool):
+def _attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device, ragged: bool):
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
-        "index": torch.zeros((batch,) if ragged else (), dtype=torch.int32, device=device),
-    }
+    cache = {"index": torch.zeros((batch,) if ragged else (), dtype=torch.int32, device=device)}
+    if layers.kv_quant_enabled():
+        # int8 K/V + an f32 scale per (token, head); the port has no ring cache
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[f"{name}_s"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
+    else:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
+
+
+def _block_cache(kind: str, cfg: ArchConfig, batch: int, max_len: int, dtype, device,
+                 ragged: bool):
+    if kind == "attn":
+        return {"attn": _attn_cache(cfg, batch, max_len, dtype, device, ragged)}
+    return {"mixer": ssm.init_mamba_state(cfg, batch, dtype, device)}
 
 
 def _stack(n: int, tree):
@@ -77,8 +92,12 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _apply_block(p: Params, x: torch.Tensor, cfg: ArchConfig, positions, cache):
+def _apply_block(p: Params, x: torch.Tensor, kind: str, cfg: ArchConfig, positions, cache):
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    if kind == "mamba2":
+        y, _ = ssm.mamba2_block(p["mixer"], h, cfg,
+                                cache["mixer"] if cache is not None else None)
+        return x + y
     x = x + layers.attention(p["attn"], h, cfg, positions,
                              cache["attn"] if cache is not None else None)
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
@@ -92,6 +111,27 @@ class Model:
     def __post_init__(self):
         check_supported(self.cfg)
 
+    def _groups(self) -> Tuple[Tuple[str, int], ...]:
+        """Layer runs, split at shared-attention boundaries for hybrids: the
+        stacking of the reference's parameter and cache trees."""
+        cfg = self.cfg
+        runs = cfg.layer_groups()
+        if not cfg.shared_attn_every:
+            return runs
+        out: List[Tuple[str, int]] = []
+        for kind, count in runs:
+            while count > 0:
+                take = min(cfg.shared_attn_every, count)
+                out.append((kind, take))
+                count -= take
+        return tuple(out)
+
+    @property
+    def n_shared_apps(self) -> int:
+        """How many times the shared attention block is applied."""
+        cfg = self.cfg
+        return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+
     # ---- cache init --------------------------------------------------------
     def init_cache(
         self, batch: int, max_len: int, ragged: bool = False, device="cuda"
@@ -100,10 +140,15 @@ class Model:
         continuous-batching decode state used by serving/engine.py."""
         cfg = self.cfg
         dev = resolve_device(device)
-        block = _block_cache(cfg, batch, max_len, torch_dtype(cfg), dev, ragged)
-        return {
-            "groups": [_stack(count, {"attn": block}) for _, count in cfg.layer_groups()]
+        dtype = torch_dtype(cfg)
+        cache: Params = {
+            "groups": [_stack(count, _block_cache(kind, cfg, batch, max_len, dtype, dev, ragged))
+                       for kind, count in self._groups()]
         }
+        if cfg.shared_attn_every:
+            cache["shared"] = _stack(
+                self.n_shared_apps, _block_cache("attn", cfg, batch, max_len, dtype, dev, ragged))
+        return cache
 
     # ---- public entry point ------------------------------------------------
     def forward(
@@ -121,12 +166,19 @@ class Model:
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         x = layers.embed(params["embedding"], tokens)
-        for gi, (_, count) in enumerate(cfg.layer_groups()):
+        done, shared_ct = 0, 0
+        for gi, (kind, count) in enumerate(self._groups()):
             gp = params["groups"][gi]
             gc = cache["groups"][gi] if cache is not None else None
             for i in range(count):
-                x = _apply_block(_layer(gp, i), x, cfg, positions,
+                x = _apply_block(_layer(gp, i), x, kind, cfg, positions,
                                  _layer(gc, i) if gc is not None else None)
+            done += count
+            if (cfg.shared_attn_every and done % cfg.shared_attn_every == 0
+                    and shared_ct < self.n_shared_apps):
+                sc = _layer(cache["shared"], shared_ct) if cache is not None else None
+                x = _apply_block(params["shared_attn"], x, "attn", cfg, positions, sc)
+                shared_ct += 1
         x = layers.apply_norm(params["ln_f"], x, cfg.norm)
         head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
         return layers.lm_logits(head, x, cfg.tie_embeddings), cache

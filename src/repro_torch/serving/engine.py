@@ -3,8 +3,10 @@ Counterpart of ``repro/serving/engine.py``, with the same behaviour:
 
   * a fixed decode batch of ``max_slots`` sequence slots shares one ragged
     cache (per-slot ``index`` lengths — see models/transformer.init_cache);
-  * a new request is PREFILLED at batch 1, padded to a power-of-two bucket,
-    then INSERTED into a free slot via kvcache.insert_prefix;
+  * a new request is PREFILLED at batch 1 (padded to a power-of-two bucket
+    for attention archs; exact length for recurrent archs, whose state would
+    otherwise be advanced through padding), then INSERTED into a free slot
+    via kvcache.insert_prefix;
   * one ``step()`` = admit waiting requests into free slots + one ragged
     decode step advancing every active slot by one token;
   * finished sequences (EOS / max_new_tokens) release their slot — the next
@@ -51,6 +53,7 @@ class Completion:
 class EngineConfig:
     max_slots: int = 4
     max_len: int = 256
+    bucket_prefill: bool = True  # pad prompts to pow2 (attention archs only)
 
 
 @dataclasses.dataclass
@@ -67,6 +70,22 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def _first_index(tree) -> Optional[torch.Tensor]:
+    if isinstance(tree, dict):
+        if "index" in tree:
+            return tree["index"]
+        children = [tree[k] for k in sorted(tree)]
+    elif isinstance(tree, list):
+        children = tree
+    else:
+        return None
+    for child in children:
+        found = _first_index(child)
+        if found is not None:
+            return found
+    return None
+
+
 class Engine:
     """One model replica serving requests with continuous batching."""
 
@@ -76,6 +95,7 @@ class Engine:
         self.params = params
         self.cfg = cfg
         self.device = next(tree_leaves(params)).device
+        self._recurrent = bundle.cfg.is_recurrent
         self.cache = self.model.init_cache(
             cfg.max_slots, cfg.max_len, ragged=True, device=self.device
         )
@@ -136,7 +156,8 @@ class Engine:
     @torch.no_grad()
     def _prefill_into(self, slot_id: int, req: Request) -> int:
         plen = len(req.prompt)
-        toks = np.zeros((1, _next_pow2(plen)), np.int64)
+        pad = _next_pow2(plen) if (self.cfg.bucket_prefill and not self._recurrent) else plen
+        toks = np.zeros((1, pad), np.int64)
         toks[0, :plen] = req.prompt
         batch = {"tokens": torch.from_numpy(toks).to(self.device)}
         logits, prefix = self.bundle.prefill_fn(self.params, batch, max_len=self.cfg.max_len)
@@ -183,8 +204,13 @@ class Engine:
         return produced
 
     def _slot_indexes(self) -> np.ndarray:
-        """Device-side per-slot cache index (of the first layer)."""
-        return self.cache["groups"][0]["attn"]["index"][0].cpu().numpy()
+        """Device-side per-slot cache index: the first ``index`` leaf in the
+        reference's (sorted-key) traversal; zeros for a cache without one."""
+        leaf = _first_index(self.cache)
+        if leaf is None:
+            return np.zeros((self.cfg.max_slots,), np.int32)
+        arr = leaf.cpu().numpy()
+        return arr[0] if arr.ndim == 2 else np.broadcast_to(arr, (self.cfg.max_slots,))
 
     def _retire_if_done(self, slot_id: int) -> None:
         st = self.slots[slot_id]

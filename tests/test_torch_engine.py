@@ -40,12 +40,12 @@ def _naive_generate(mb, params, prompt, n_new):
     return out
 
 
-def test_engine_matches_reference_engine(smollm):
+def _check_against_reference_engine(smollm, **engine_cfg):
     jmb, jparams, tmb, tparams = smollm
     rng = np.random.default_rng(0)
     prompts = [list(map(int, rng.integers(1, 255, size=n))) for n in (5, 3, 7, 4)]
-    jeng = JEngine(jmb, jparams, JEngineConfig(max_slots=3, max_len=64))
-    teng = Engine(tmb, tparams, EngineConfig(max_slots=3, max_len=64))
+    jeng = JEngine(jmb, jparams, JEngineConfig(max_slots=3, max_len=64, **engine_cfg))
+    teng = Engine(tmb, tparams, EngineConfig(max_slots=3, max_len=64, **engine_cfg))
     for i, p in enumerate(prompts):
         jeng.submit(JRequest(rid=f"r{i}", prompt=p, max_new_tokens=5))
         teng.submit(Request(rid=f"r{i}", prompt=p, max_new_tokens=5))
@@ -55,6 +55,16 @@ def test_engine_matches_reference_engine(smollm):
     assert teng.stats == jeng.stats
     for i, p in enumerate(prompts):
         assert got[f"r{i}"][0] == _naive_generate(tmb, tparams, p, 5)
+
+
+def test_engine_matches_reference_engine(smollm):
+    _check_against_reference_engine(smollm)
+
+
+def test_engine_exact_length_prefill_matches_reference_engine(smollm):
+    """bucket_prefill=False: an attention arch prefills at the prompt's own
+    length, as recurrent archs always do."""
+    _check_against_reference_engine(smollm, bucket_prefill=False)
 
 
 def test_engine_slot_reuse_and_stats(smollm):

@@ -175,6 +175,25 @@ def test_decode_attention_ref_ragged(lens):
     np.testing.assert_allclose(_np(got), _np(pallas), atol=2e-5, rtol=2e-5)
 
 
+def test_decode_attention_ref_empty_slot_is_zero_as_pallas():
+    """A slot with no valid cache row (length 0, or below) gets zeros, as the
+    Pallas kernel (and the CUDA kernel) give it; the other slots are as the
+    reference oracle computes them."""
+    lens = [0, 64, -3, 300]
+    b, smax, hq, hkv, d = 4, 256, 8, 2, 64
+    (tq, tk, tv), arrs = _inputs(10, "float32", (b, 1, hq, d), (b, smax, hkv, d),
+                                 (b, smax, hkv, d))
+    jnp, jref, flash_attention_pallas, decode_attention_pallas = _jax()
+    q, k, v = _jax_inputs(arrs, "float32")
+    got = tref.decode_attention_ref(tq, tk, tv, length=torch.tensor(lens, dtype=torch.int32))
+    jl = jnp.asarray(lens, jnp.int32)
+    pallas = decode_attention_pallas(q, k, v, length=jl, block_k=64, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=2e-5, rtol=2e-5)
+    assert not got[0].any() and not got[2].any()
+    want = _np(jref.decode_attention_ref(q, k, v, length=jl))
+    np.testing.assert_allclose(_np(got)[[1, 3]], want[[1, 3]], atol=2e-5, rtol=2e-5)
+
+
 def test_decode_attention_length_above_smax_is_full_cache():
     b, smax, hq, hkv, d = 2, 128, 6, 2, 32
     (tq, tk, tv), _ = _inputs(6, "float32", (b, 1, hq, d), (b, smax, hkv, d), (b, smax, hkv, d))
@@ -205,6 +224,7 @@ def test_ops_on_cpu_dispatch_to_plain_versions_without_launches():
     "b,sq,sk,hq,hkv,d,dv,causal,window",
     [
         (1, 512, 512, 9, 3, 64, 64, True, None),  # smollm-135m prefill
+        (1, 300, 300, 32, 32, 64, 64, True, None),  # zamba2-1.2b shared attention
         (1, 300, 300, 9, 3, 64, 64, True, None),  # odd S
         (2, 100, 300, 8, 2, 64, 64, True, None),  # Sq < Sk
         (1, 256, 256, 6, 1, 32, 32, True, None),  # MQA
@@ -230,6 +250,7 @@ def test_flash_attention_cuda_matches_plain(cuda, dtype, b, sq, sk, hq, hkv, d, 
     "b,smax,hq,hkv,d,lens",
     [
         (8, 2048, 9, 3, 64, [1, 2048, 3000, 5, 700, 64, 65, 128]),  # smollm-135m
+        (8, 2048, 32, 32, 64, [0, 2048, 2049, 1, 700, 64, 65, 33]),  # zamba2-1.2b, G = 1
         (2, 256, 8, 2, 64, [137, 137]),
         (3, 128, 4, 1, 32, [1, 1, 1]),
         (2, 256, 16, 2, 64, [200, 256]),
