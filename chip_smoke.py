@@ -6,18 +6,22 @@
 Phases, each of which passes or raises (any failure exits non-zero):
   1. the device, as nvidia-smi reports its name and power limit;
   2. build every kernel of the serving paths from kernels/csrc (nvcc, all
-     sources at once) and print the compiler's register/spill summary;
+     sources at once) and print the compiler's register/spill summary for
+     each kernel function;
   3. each kernel against its plain PyTorch version on the card, at the
      serving paths' shapes and at the reference test sweeps, within the
      stated tolerance (attention bf16 2e-2, f32 2e-5; SSD scan bf16 5e-2,
-     f32 5e-5 atol / 5e-4 rtol, the reference sweep's own);
+     f32 5e-5 atol / 5e-4 rtol, the reference sweep's own), each flash case
+     through the body its shape selects (tensor cores for bf16 with head
+     dims that are multiples of 16), decode at lengths around its split;
   4. three engine runs at full width through repro_torch.launch.serve's
      engine path, each of 16 seeded requests with bf16 seeded random weights:
      smollm-135m, zamba2-1.2b (Mamba-2 + shared attention), and smollm-135m
      with an int8 KV cache (layers.set_kv_quant).  The kernels' launch counts
      are zeroed just before each run and read just after; each run must
      have launched the kernels of its path (zamba2: the SSD scan exactly
-     once per Mamba-2 layer per request; int8: only the int8 decode kernel);
+     once per Mamba-2 layer per request; int8: only the int8 decode kernel;
+     every flash launch through the tensor-core body);
   5. smollm-135m and zamba2-1.2b on the card, in bf16 and with the same
      weights in f32, against f32 on the CPU (plain versions): prefill and one
      decode step's logits, and the number of greedy tokens that agree;
@@ -25,7 +29,13 @@ Phases, each of which passes or raises (any failure exits non-zero):
      launches in phase 4, its time, its plain version's time, one PyTorch
      call's time where one computes the same function (the attention
      kernels: F.scaled_dot_product_attention, a yardstick the port never
-     calls) and the least time the card could take (bound_ms).  The two
+     calls) and the least time the card could take (bound_ms).  ``ms``,
+     ``plain_ms`` and ``library_ms`` are CUDA-event means over 30
+     back-to-back Python calls, so they include the host's time per call
+     where it exceeds the device's; ``device_ms`` (and ``library_device_ms``
+     for the PyTorch call) is the device's own time per call, the durations
+     of the device kernels the calls launched, from a torch.profiler trace
+     of a second pass of the same 30 calls (``device_ms_source``).  The two
      attention kernels serve smollm-135m and zamba2-1.2b at different head
      layouts; their entries carry the zamba2 shapes' numbers under "zamba2".
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
@@ -38,6 +48,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -105,6 +117,29 @@ def time_ms(fn, inputs, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, inputs, names=(), iters: int = 30):
+    """Device time per call: the summed durations of the device kernels that
+    ``iters`` calls launch (only those whose names contain one of ``names``,
+    where given), from a torch.profiler trace.  Returns (ms, source, kernel
+    names); raises if the trace holds no such device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for x in inputs[:3]:
+        fn(*x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and (not names or any(n in e.name for n in names))]
+    if not events:
+        raise AssertionError(f"device time: the profiler recorded no device kernel {names}")
+    us = sum(e.time_range.end - e.time_range.start for e in events)
+    return us / iters / 1e3, "torch.profiler", sorted({e.name[:80] for e in events})
+
+
 def copies_past_l2(nbytes: int) -> int:
     return max(2, math.ceil(64e6 / max(nbytes, 1)))
 
@@ -123,13 +158,21 @@ def phase_build(_build):
     t0 = time.perf_counter()
     secs = _build.build(KERNELS)
     log(f"build: {time.perf_counter() - t0:.1f}s ({', '.join(f'{k} {v:.1f}s' for k, v in secs.items()) or 'cached'})")
+    cxxfilt = shutil.which("c++filt")
     for lib in sorted(_build.BUILD_DIR.glob("*.log")):
+        fn = "?"
         for line in lib.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {lib.stem}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '([^']+)'", line)
+            if entry:
+                fn = entry.group(1)
+                if cxxfilt:
+                    fn = subprocess.run([cxxfilt, fn], capture_output=True,
+                                        text=True).stdout.strip() or fn
+            elif "registers" in line or "spill" in line:
+                log(f"  {lib.stem}: {fn}: {line.strip()}")
 
 
-def phase_kernels(torch, ref, fa, dec, q8, ssd):
+def phase_kernels(torch, ops, ref, fa, dec, q8, ssd):
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def rn(shape, dt):
@@ -153,6 +196,22 @@ def phase_kernels(torch, ref, fa, dec, q8, ssd):
         ("window 100", "float32", 2, 256, 256, 4, 2, 64, 64, True, 100),
         ("window 256", "float32", 2, 256, 256, 4, 2, 64, 64, True, 256),
         ("non-causal MHA", "float32", 1, 128, 128, 4, 4, 64, 64, False, None),
+    ] + [  # the tensor-core body's tile edges and ragged tails
+        (f"D=Dv={d_}", "bfloat16", 2, 300, 300, 8, 2, d_, d_, True, None)
+        for d_ in (32, 80, 128, 256)
+    ] + [
+        ("D=128 Dv=256 non-causal", "bfloat16", 1, 77, 150, 4, 4, 128, 256, False, None),
+        ("D=128 Dv=256 Sq<Sk", "bfloat16", 2, 100, 300, 4, 2, 128, 256, True, None),
+        ("Sq<Sk 100/300", "bfloat16", 2, 100, 300, 8, 2, 64, 64, True, None),
+        ("Sq<Sk 1/300", "bfloat16", 2, 1, 300, 9, 3, 64, 64, True, None),
+        ("window 32", "bfloat16", 2, 256, 256, 4, 2, 64, 64, True, 32),
+        ("window 100", "bfloat16", 2, 256, 256, 4, 2, 64, 64, True, 100),
+        ("window 100 S=300", "bfloat16", 2, 300, 300, 9, 3, 64, 64, True, 100),
+        ("Sq>Sk non-causal 150/77", "bfloat16", 2, 150, 77, 6, 2, 64, 64, False, None),
+        ("D=40 (CUDA-core body)", "bfloat16", 1, 128, 128, 4, 2, 40, 40, True, None),
+    ] + [
+        (f"S={s_}", "bfloat16", 2, s_, s_, 9, 3, 64, 64, True, None)
+        for s_ in (1, 15, 17, 300, 1023)
     ]
     for dn in ("float32", "bfloat16"):  # tests/test_kernels.py flash sweep
         for b, s, hq, hkv, d in [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 256, 6, 1, 32),
@@ -162,9 +221,18 @@ def phase_kernels(torch, ref, fa, dec, q8, ssd):
     log("kernels vs plain versions on the card:")
     for label, dn, b, sq, sk, hq, hkv, d, dv, causal, win in flash_cases:
         q, k, v = rn((b, sq, hq, d), dts[dn]), rn((b, sk, hkv, d), dts[dn]), rn((b, sk, hkv, dv), dts[dn])
+        want_body = "tc" if dn == "bfloat16" and d % 16 == 0 and dv % 16 == 0 else "simt"
+        if fa.body(q, k, v) != want_body:
+            raise AssertionError(f"flash_attention {label} {dn}: body {fa.body(q, k, v)}, "
+                                 f"expected {want_body}")
+        before = ops.launch_counts().get(f"flash_attention.{want_body}", 0)
         got = fa.flash_attention_cuda(q, k, v, causal, win)
         torch.cuda.synchronize()
-        check_close(f"flash_attention {label} {dn}", got, ref.attention_ref(q, k, v, causal, win), dn)
+        require(ops.launch_counts(), f"flash_attention.{want_body}",
+                ops.launch_counts().get(f"flash_attention.{want_body}", 0) == before + 1,
+                f"{before + 1}")
+        check_close(f"flash_attention {label} {dn} ({want_body})", got,
+                    ref.attention_ref(q, k, v, causal, win), dn)
     dec_cases = [
         ("smollm 8 slots, Smax=2048", "bfloat16", 8, 2048, 9, 3, 64,
          [1, 2048, 3000, 5, 700, 64, 65, 128]),
@@ -175,6 +243,10 @@ def phase_kernels(torch, ref, fa, dec, q8, ssd):
         ("zamba2 8 slots, Smax=2048, G=1", dn, 8, 2048, 32, 32, 64,
          [0, 2048, 3000, 1, 700, 64, 65, 33]) for dn in ("bfloat16", "float32")
     ]
+    sp = dec.SPLIT  # lengths around the split-K boundaries, in one batch
+    edges = [0, 1, sp - 1, sp, sp + 1, 2048, 3000, 700]
+    dec_cases += [(f"split edges {edges}", dn, 8, 2048, hq_, hkv_, 64, edges)
+                  for dn in ("bfloat16", "float32") for hq_, hkv_ in ((9, 3), (32, 32))]
     for dn in ("float32", "bfloat16"):  # tests/test_kernels.py decode sweep
         for b, smax, hq, hkv, d, n in [(2, 256, 8, 2, 64, 137), (1, 512, 4, 4, 64, 512),
                                        (3, 128, 4, 1, 32, 1), (2, 256, 16, 2, 64, 200)]:
@@ -272,11 +344,18 @@ def require(counts, name: str, ok: bool, want: str) -> None:
         raise AssertionError(f"{name} launched {counts.get(name, 0)} times, expected {want}")
 
 
+def require_tc(counts) -> None:
+    """Every flash launch of an engine run went through the tensor-core body."""
+    n = counts.get("flash_attention", 0)
+    require(counts, "flash_attention.tc", counts.get("flash_attention.tc", 0) == n, f"{n}")
+
+
 def phase_engines(torch, ops, serve, layers):
     runs = {}
     res, counts, reqs = phase_engine(torch, ops, serve, layers, SMOLLM)
     for name in ("flash_attention", "decode_attention"):
         require(counts, name, counts.get(name, 0) > 0, "> 0")
+    require_tc(counts)
     runs[SMOLLM] = (res, counts, reqs)
 
     res, counts, reqs = phase_engine(torch, ops, serve, layers, ZAMBA2)
@@ -288,12 +367,14 @@ def phase_engines(torch, ops, serve, layers):
     require(counts, "flash_attention", counts.get("flash_attention", 0) ==
             n_req * model.n_shared_apps, f"{n_req} x {model.n_shared_apps}")
     require(counts, "decode_attention", counts.get("decode_attention", 0) > 0, "> 0")
+    require_tc(counts)
     runs[ZAMBA2] = (res, counts, reqs)
 
     res, counts, reqs = phase_engine(torch, ops, serve, layers, SMOLLM, kv_quant=True)
     require(counts, "decode_attention_q8", counts.get("decode_attention_q8", 0) > 0, "> 0")
     require(counts, "decode_attention", counts.get("decode_attention", 0) == 0, "0")
     require(counts, "flash_attention", counts.get("flash_attention", 0) > 0, "> 0")
+    require_tc(counts)
     runs["smollm-135m int8-KV"] = (res, counts, reqs)
     return runs
 
@@ -344,6 +425,19 @@ def bound(nbytes: int, flops: int) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def device_times(kernel, names, library, sets) -> dict:
+    """device_ms of a kernel's wrapper (its own device kernels, by name) and,
+    where one PyTorch call computes the same function, library_device_ms
+    (every device kernel that call launches)."""
+    dev, src, knames = device_ms(kernel, sets, names)
+    out = dict(device_ms=dev, device_ms_source=src, device_kernels=knames,
+               library_device_ms=None)
+    if library is not None:
+        ldev, _, lnames = device_ms(library, sets)
+        out.update(library_device_ms=ldev, library_device_kernels=lnames)
+    return out
+
+
 def time_flash(torch, F, ref, fa, gen, s, hq, hkv, d=64, b=1):
     """flash_attention on bf16 q (b,s,hq,d), k/v (b,s,hkv,d), causal."""
     shapes = ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))
@@ -352,14 +446,22 @@ def time_flash(torch, F, ref, fa, gen, s, hq, hkv, d=64, b=1):
                   for x in shapes) for _ in range(copies_past_l2(per_set))]
     pairs = s * (s + 1) // 2  # causal (q, k) pairs per head
     q, k, v = sets[0]
+
+    def kernel(q, k, v):
+        return fa.flash_attention_cuda(q, k, v, True)
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), is_causal=True, enable_gqa=True)
+
     return dict(
         shape=f"q({b},{s},{hq},{d}) kv({b},{s},{hkv},{d}) bf16 causal",
-        max_abs_err=max_err(fa.flash_attention_cuda(q, k, v, True), ref.attention_ref(q, k, v, True)),
-        ms=time_ms(lambda q, k, v: fa.flash_attention_cuda(q, k, v, True), sets),
+        body=fa.body(q, k, v),
+        max_abs_err=max_err(kernel(q, k, v), ref.attention_ref(q, k, v, True)),
+        ms=time_ms(kernel, sets),
         plain_ms=time_ms(lambda q, k, v: ref.attention_ref(q, k, v, True), sets),
-        library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-            enable_gqa=True), sets),
+        library_ms=time_ms(library, sets),
+        **device_times(kernel, ("fa_tc_kernel", "fa_fwd_kernel"), library, sets),
         **bound(per_set, 2 * b * hq * pairs * (d + d)),
     )
 
@@ -375,15 +477,22 @@ def time_decode(torch, F, ref, dec, gen, lens, hq, hkv, d=64, smax=2048):
     sets = [tuple(torch.randn(x, generator=gen, device="cuda").to(torch.bfloat16) for x in shapes)
             for _ in range(copies_past_l2(bsz * smax * hkv * d * 2 * 2))]
     q, k, v = sets[0]
+
+    def kernel(q, k, v):
+        return dec.decode_attention_cuda(q, k, v, length)
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
     return dict(
         shape=f"q({bsz},1,{hq},{d}) cache({bsz},{smax},{hkv},{d}) bf16 lengths {lens}",
-        max_abs_err=max_err(dec.decode_attention_cuda(q, k, v, length),
-                            ref.decode_attention_ref(q, k, v, length)),
-        ms=time_ms(lambda q, k, v: dec.decode_attention_cuda(q, k, v, length), sets),
+        split=dec.SPLIT,
+        max_abs_err=max_err(kernel(q, k, v), ref.decode_attention_ref(q, k, v, length)),
+        ms=time_ms(kernel, sets),
         plain_ms=time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, length), sets),
-        library_ms=time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
-            enable_gqa=True), sets),
+        library_ms=time_ms(library, sets),
+        **device_times(kernel, ("decode_split_kernel", "decode_combine_kernel"), library, sets),
         **bound(per_set, 2 * hq * sum(lens) * (d + d)),
     )
 
@@ -455,6 +564,8 @@ def phase_timing(torch, F, ref, fa, dec, q8, ssd, runs):
         ms=time_ms(lambda *a: q8.decode_attention_q8_cuda(*a, length), sets),
         plain_ms=time_ms(lambda *a: ref.decode_attention_q8_ref(*a, length), sets),
         library_ms=None,  # no single PyTorch call computes attention over an int8 cache
+        **device_times(lambda *a: q8.decode_attention_q8_cuda(*a, length), ("decode_q8_kernel",),
+                       None, sets),
         **bound(per_set, 2 * hq * sum(lens) * (d + d)),
     ))
     del sets
@@ -485,6 +596,7 @@ def phase_timing(torch, F, ref, fa, dec, q8, ssd, runs):
         ms=time_ms(lambda *a: ssd.ssd_scan_cuda(*a), sets),
         plain_ms=time_ms(lambda *a: ref.ssd_scan_ref(*a), sets, iters=3),
         library_ms=None,  # no single PyTorch call computes a selective scan
+        **device_times(lambda *a: ssd.ssd_scan_cuda(*a), ("ssd_kernel",), None, sets),
         **bound(per_set, flops),
     ))
     del sets
@@ -518,7 +630,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device()
     phase_build(_build)
-    phase_kernels(torch, ref, fa, dec, q8, ssd)
+    phase_kernels(torch, ops, ref, fa, dec, q8, ssd)
     runs = phase_engines(torch, ops, serve, layers)
     for arch in (SMOLLM, ZAMBA2):
         phase_vs_cpu(torch, runs[arch][0], Engine, EngineConfig, Request, bundle, tree_map)
@@ -526,9 +638,11 @@ def main() -> int:
     for e in entries:
         for path, t in [(e["launches_path"], e)] + ([(ZAMBA2, e["zamba2"])] if "zamba2" in e
                                                      else []):
-            lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
-            log(f"  {e['name']} {t['shape']}: {t['ms']:.4f} ms (bound {t['bound_ms']:.5f} ms "
-                f"by {t['bound_by']}, plain {t['plain_ms']:.4f} ms, library {lib}), "
+            lib = "none" if t["library_ms"] is None else (
+                f"{t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} ms")
+            log(f"  {e['name']} {t['shape']}: {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms "
+                f"({t['device_ms_source']}; bound {t['bound_ms']:.5f} ms by {t['bound_by']}, "
+                f"plain {t['plain_ms']:.4f} ms, library {lib}), "
                 f"{t['launches']} launches in the {path} run")
     for arch, (res, _, _) in runs.items():
         log(f"  engine {arch}: {res['tok_per_s']:.1f} tok/s")

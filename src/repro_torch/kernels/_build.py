@@ -21,7 +21,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Sequence, Union
 
 __all__ = [
     "CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "launch",
@@ -108,12 +108,15 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         return lib
 
 
-def launch(counter: str, fn, *args) -> None:
-    """Call one exported launcher, count the launch and raise on a CUDA error."""
+def launch(counters: Union[str, Sequence[str]], fn, *args) -> None:
+    """Call one exported launcher, add one to each of its counters and raise
+    on a CUDA error."""
+    names = (counters,) if isinstance(counters, str) else tuple(counters)
     rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"{counter} kernel launch failed: cudaError_t {rc}")
-    _COUNTS[counter] = _COUNTS.get(counter, 0) + 1
+        raise RuntimeError(f"{names[0]} kernel launch failed: cudaError_t {rc}")
+    for name in names:
+        _COUNTS[name] = _COUNTS.get(name, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,37 +1,61 @@
-// Flash-decoding for Hopper, sm_90a: one query token per sequence against
-// its KV cache.
+// Split-K flash-decoding for Hopper, sm_90a: one query token per sequence
+// against its KV cache.
 //
 // Replaces: repro/kernels/decode_attention.py, decode_attention_pallas
 // (kernel body _dec_kernel).  Same function: the G = Hq / Hkv query heads of
 // a KV group are packed together and attend over cache slots
 // [0, min(length[b], Smax)) with an online softmax in f32; slots past the
 // length are never read.  length is per sequence (ragged continuous
-// batching); a scalar length arrives broadcast by the wrapper.  G need not be
-// a power of two (smollm-135m has G = 3).
+// batching), clamped to [0, Smax] on the device; a scalar length arrives
+// broadcast by the wrapper.  A sequence of length 0 gets zeros.  G need not
+// be a power of two (smollm-135m has G = 3).
 //
 // What bounds it on an H100: every cached K/V byte up to the length is read
 // once and used for 2 * G * (D + Dv) operations per slot, about G / 2
 // operations per byte in bf16, far below the ~295 the card needs to be
-// compute-bound.  So it is bound by HBM bytes: B * sum(length) * Hkv *
-// (D + Dv) * 2 bytes at 3.35 TB/s.  This first version is written to be
-// right and simple, not fast: one thread block per (KV head, sequence)
-// streams its cache in 64-slot tiles through shared memory (coalesced rows),
-// the packed G heads share each K/V tile so the cache is read once per
-// group, not once per query head, and the running max / sum / accumulator
-// stay in shared memory.  Only B * Hkv blocks run (24 for 8 slots of
-// smollm-135m), far fewer than the 132 SMs: splitting the cache across
-// blocks (split-K) and wider loads are left for later work.
+// compute-bound.  So it is bound by HBM bytes: sum(length) * Hkv *
+// (D + Dv) * sizeof(T) at 3.35 TB/s (2.6 MB, 0.8 us, for 8 smollm-135m
+// slots mid-generation).  Reaching that takes many blocks with many loads
+// in flight, not one long walk per (sequence, KV head):
 //
-// C interface, called through ctypes; returns the cudaError_t of the launch.
+// * decode_split_kernel: the grid is (Hkv x head chunks, B, NS) with
+//   NS = ceil(Smax / split); the lengths stay on the device, so the grid is
+//   sized from Smax with no host sync.  Block (hk, b, s) takes cache rows
+//   [s * split, (s + 1) * split) of its slot; a block that starts at or past
+//   the slot's length writes an empty partial (m = -inf, l = 0) and exits.
+//   Inside, a row of K (or V) is read by a team of L lanes with one 16-byte
+//   load each (8 bf16; two loads for 8 f32): L = 8 for a 64-wide bf16 row,
+//   so a warp reads 4 rows at once and each lane keeps 4 rows' loads in
+//   flight, held as raw 16-byte words until used (77 registers at G = 1 in
+//   bf16, so many blocks share an SM).  The G dot products of a row are
+//   summed across its team by shuffles; the packed query heads, the running
+//   max and sum and the accumulator stay in registers.  The teams, then the
+//   four warps, merge their softmax states, and the block writes
+//   (m, l, acc[G][Dv]) in f32 to a scratch tensor the wrapper allocates.
+//   Query heads beyond 8 per group go to further blocks (head chunks).
+// * decode_combine_kernel: one block per (KV head group, sequence) merges
+//   the NS partials of all its G heads at once and writes o in q's dtype.
+//   The live pieces (l > 0) are a prefix, so their partials are read with
+//   independent loads, not one dependent load per piece.
+//
+// split = 64 (the wrapper's SPLIT): 8 smollm-135m slots at Smax = 2048 launch
+// 3 x 8 x 32 = 768 blocks (>= 2 x 132 SMs), and the ~3300 live rows of a
+// mid-generation batch still give ~170 working blocks; a 64-row block is
+// 16 KB of K/V for a 64-wide bf16 head, enough to amortise its partial
+// (G x Dv x 4 bytes) and its share of the combine.
+//
+// C interface, called through ctypes; returns the cudaError_t of the
+// launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BK = 64;  // cache slots per tile
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr float NEG = -1e30f;
+constexpr int E = 8;  // elements of a row per lane
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -39,6 +63,227 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// A lane's 8 elements of a row as they sit in memory: one 16-byte word for
+// bf16, two for f32.  Rows in flight stay in this form (4 registers per bf16
+// row) and are widened to f32 only when used.
+template <typename T> struct Raw;
+template <> struct Raw<__nv_bfloat16> { uint4 w; };
+template <> struct Raw<float> { uint4 w0, w1; };
+
+__device__ __forceinline__ uint32_t pack_bf16x2(__nv_bfloat16 a, __nv_bfloat16 b) {
+  __nv_bfloat162 v = __halves2bfloat162(a, b);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// columns [c0, c0 + E) of a row of `width` elements, zero past the width;
+// vec: width % E == 0 and 16-byte aligned rows, so one chunk is one or two
+// 16-byte loads
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* row, int c0, int width,
+                                           bool vec, Raw<__nv_bfloat16>& x) {
+  if (vec && c0 + E <= width) {
+    x.w = *reinterpret_cast<const uint4*>(row + c0);
+    return;
+  }
+  __nv_bfloat16 e[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) e[i] = c0 + i < width ? row[c0 + i] : __float2bfloat16(0.f);
+  x.w = make_uint4(pack_bf16x2(e[0], e[1]), pack_bf16x2(e[2], e[3]), pack_bf16x2(e[4], e[5]),
+                   pack_bf16x2(e[6], e[7]));
+}
+__device__ __forceinline__ void load_chunk(const float* row, int c0, int width, bool vec,
+                                           Raw<float>& x) {
+  if (vec && c0 + E <= width) {
+    x.w0 = *reinterpret_cast<const uint4*>(row + c0);
+    x.w1 = *reinterpret_cast<const uint4*>(row + c0 + 4);
+    return;
+  }
+  float e[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) e[i] = c0 + i < width ? row[c0 + i] : 0.f;
+  x.w0 = make_uint4(__float_as_uint(e[0]), __float_as_uint(e[1]), __float_as_uint(e[2]),
+                    __float_as_uint(e[3]));
+  x.w1 = make_uint4(__float_as_uint(e[4]), __float_as_uint(e[5]), __float_as_uint(e[6]),
+                    __float_as_uint(e[7]));
+}
+
+__device__ __forceinline__ void widen(const Raw<__nv_bfloat16>& x, float (&f)[E]) {
+  const uint32_t w[4] = {x.w.x, x.w.y, x.w.z, x.w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void widen(const Raw<float>& x, float (&f)[E]) {
+  f[0] = __uint_as_float(x.w0.x); f[1] = __uint_as_float(x.w0.y);
+  f[2] = __uint_as_float(x.w0.z); f[3] = __uint_as_float(x.w0.w);
+  f[4] = __uint_as_float(x.w1.x); f[5] = __uint_as_float(x.w1.y);
+  f[6] = __uint_as_float(x.w1.z); f[7] = __uint_as_float(x.w1.w);
+}
+
+// (m, l) of two softmax states in log2 units -> the merged max and the two
+// weights; a state with no row yet has m = -inf and weight 0
+__device__ __forceinline__ float merge_base(float m) { return m == -INFINITY ? 0.f : m; }
+
+// GB: query heads per block (a chunk of the group); L: lanes per row (runtime,
+// a power of two <= 32, L * E >= max(D, Dv)).
+template <typename T, int GB>
+__global__ void __launch_bounds__(THREADS) decode_split_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ length, float* __restrict__ part_ml,
+    float* __restrict__ part_acc, int Smax, int Hq, int Hkv, int D, int Dv, int L, int split,
+    int vec, float scale_log2) {
+  constexpr int U = GB >= 8 ? 2 : 4;  // rows in flight per team
+  extern __shared__ float red_acc[];  // WARPS x GB x Dv
+  __shared__ float red_m[WARPS][GB], red_l[WARPS][GB];
+
+  const int G = Hq / Hkv, nchunk = (G + GB - 1) / GB;
+  const int hk = blockIdx.x / nchunk, g0 = (blockIdx.x % nchunk) * GB;
+  const int Gb = min(GB, G - g0);
+  const int b = blockIdx.y, sp = blockIdx.z, NS = gridDim.z;
+  const int h0 = hk * G + g0;  // first query head of this block
+  const int len = min(max(length[b], 0), Smax);
+  const int s_begin = sp * split, s_end = min(s_begin + split, len);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (s_begin >= len) {  // nothing to read: an empty partial
+    if (tid < Gb) {
+      float* ml = part_ml + ((size_t)(b * Hq + h0 + tid) * NS + sp) * 2;
+      ml[0] = -INFINITY;
+      ml[1] = 0.f;
+    }
+    return;
+  }
+
+  const int teams = THREADS / L, team = tid / L, c0 = (lane % L) * E;
+  const bool vc = vec != 0;
+  float qr[GB][E], acc[GB][E], m[GB], l[GB];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    Raw<T> raw{};
+    if (g < Gb) load_chunk(q + ((size_t)b * Hq + h0 + g) * D, c0, D, vc, raw);
+    widen(raw, qr[g]);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      qr[g][e] *= scale_log2;
+      acc[g][e] = 0.f;
+    }
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+  }
+
+  const size_t rk = (size_t)Hkv * D, rv = (size_t)Hkv * Dv;
+  const T* kb = k + (size_t)b * Smax * rk + (size_t)hk * D;
+  const T* vb = v + (size_t)b * Smax * rv + (size_t)hk * Dv;
+
+  // every team runs the same number of iterations, so the shuffles below
+  // always see the whole warp
+  for (int base = s_begin; base < s_end; base += teams * U) {
+    Raw<T> kr[U], vr[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = base + team + u * teams;
+      ok[u] = r < s_end;
+      kr[u] = Raw<T>{};
+      vr[u] = Raw<T>{};
+      if (ok[u]) {
+        load_chunk(kb + (size_t)r * rk, c0, D, vc, kr[u]);
+        load_chunk(vb + (size_t)r * rv, c0, Dv, vc, vr[u]);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g >= Gb) break;
+      float sc[U];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[E];
+        widen(kr[u], kf);
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot = fmaf(qr[g][e], kf[e], dot);
+        for (int o = L / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        sc[u] = ok[u] ? dot : -INFINITY;
+        mx = fmaxf(mx, sc[u]);
+      }
+      const float mn = fmaxf(m[g], mx), bs = merge_base(mn);
+      const float al = exp2f(m[g] - bs);
+      m[g] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sc[u] = exp2f(sc[u] - bs);
+        sum += sc[u];
+      }
+      l[g] = l[g] * al + sum;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= al;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float vf[E];
+        widen(vr[u], vf);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(sc[u], vf[e], acc[g][e]);
+      }
+    }
+  }
+
+  // merge the teams of a warp (lane offsets L, 2L, ... apart)
+  for (int o = L; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g >= Gb) break;
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float mn = fmaxf(m[g], mo), bs = merge_base(mn);
+      const float wa = exp2f(m[g] - bs), wb = exp2f(mo - bs);
+      m[g] = mn;
+      l[g] = l[g] * wa + lo * wb;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[g][e] = acc[g][e] * wa + __shfl_xor_sync(0xffffffffu, acc[g][e], o) * wb;
+    }
+  }
+  // then the warps, through shared memory
+  if (lane < L) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g >= Gb) break;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (c0 + e < Dv) red_acc[(warp * GB + g) * Dv + c0 + e] = acc[g][e];
+      if (lane == 0) {
+        red_m[warp][g] = m[g];
+        red_l[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < Gb * Dv; i += THREADS) {
+    const int g = i / Dv, c = i % Dv;
+    float mt = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mt = fmaxf(mt, red_m[w][g]);
+    const float bs = merge_base(mt);
+    float a = 0.f, lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = exp2f(red_m[w][g] - bs);
+      a += wt * red_acc[(w * GB + g) * Dv + c];
+      lt += wt * red_l[w][g];
+    }
+    const size_t row = (size_t)(b * Hq + h0 + g) * NS + sp;
+    part_acc[row * Dv + c] = a;
+    if (c == 0) {
+      part_ml[row * 2] = mt;
+      part_ml[row * 2 + 1] = lt;
+    }
+  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -50,125 +295,124 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// one block per (KV head group, sequence): o[h] = sum_s w_s acc_s / sum_s w_s l_s
+// with w_s = exp2(m_s - max m), for each of the group's G heads at once.
+// The pieces that hold a row (l > 0) are a prefix of the NS pieces, the
+// same for every head of a sequence; only they are read for acc, with
+// independent loads (unrolled by 4; the minimum of one block per SM lets
+// ptxas give that loop 40 registers instead of spilling at 32).  No live
+// piece (length 0): zeros.
 template <typename T>
-__global__ void __launch_bounds__(THREADS) decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ length, T* __restrict__ o, int Smax, int Hq, int Hkv, int D,
-    int Dv, float scale) {
-  extern __shared__ float smem[];
-  const int G = Hq / Hkv, ldk = D + 1, ldp = BK + 1;
-  float* Qs = smem;            // G x D, pre-scaled by 1/sqrt(D)
-  float* Ks = Qs + G * D;      // BK x ldk
-  float* Vs = Ks + BK * ldk;   // BK x Dv
-  float* Ps = Vs + BK * Dv;    // G x ldp: scores, then probabilities
-  float* acc = Ps + G * ldp;   // G x Dv
-  float* m = acc + G * Dv;     // G running max
-  float* l = m + G;            // G running sum
-  float* alpha = l + G;        // G rescale of this tile
-
-  const int hk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int len = min(max(length[b], 0), Smax);
-  const T* qb = q + ((size_t)b * Hq + (size_t)hk * G) * D;  // the group's G heads
-
-  for (int e = tid; e < G * D; e += THREADS) Qs[e] = to_f(qb[e]) * scale;
-  for (int e = tid; e < G * Dv; e += THREADS) acc[e] = 0.f;
-  for (int g = tid; g < G; g += THREADS) { m[g] = NEG; l[g] = 0.f; }
-
-  for (int k0 = 0; k0 < len; k0 += BK) {
-    const int n = min(BK, len - k0);
-    __syncthreads();  // the previous tile is consumed (and Qs staged)
-    for (int e = tid; e < n * D; e += THREADS) {
-      const int j = e / D, d = e % D;
-      Ks[j * ldk + d] = to_f(k[((size_t)(b * Smax + k0 + j) * Hkv + hk) * D + d]);
+__global__ void __launch_bounds__(THREADS, 1) decode_combine_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_acc, T* __restrict__ o,
+    int Hq, int Hkv, int Dv, int NS) {
+  extern __shared__ float wts[];  // G x NS
+  __shared__ int live_s;
+  const int G = Hq / Hkv, hk = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t head0 = (size_t)b * Hq + (size_t)hk * G;
+  for (int g = warp; g < G; g += WARPS) {  // a warp per head: the weights
+    const float* ml = part_ml + (head0 + g) * NS * 2;
+    float mx = -INFINITY;
+    int live = 0;
+    for (int s0 = 0; s0 < NS; s0 += 32) {
+      const int s = s0 + lane;
+      const bool has = s < NS && ml[2 * s + 1] > 0.f;
+      if (has) mx = fmaxf(mx, ml[2 * s]);
+      live += __popc(__ballot_sync(0xffffffffu, has));
     }
-    for (int e = tid; e < n * Dv; e += THREADS) {
-      const int j = e / Dv, c = e % Dv;
-      Vs[j * Dv + c] = to_f(v[((size_t)(b * Smax + k0 + j) * Hkv + hk) * Dv + c]);
+    const float bs = merge_base(warp_max(mx));
+    float lsum = 0.f;
+    for (int s = lane; s < live; s += 32) {
+      const float w = exp2f(ml[2 * s] - bs);
+      wts[g * NS + s] = w;
+      lsum += w * ml[2 * s + 1];
     }
-    __syncthreads();
-
-    for (int e = tid; e < G * BK; e += THREADS) {
-      const int g = e / BK, j = e % BK;
-      float s = NEG;
-      if (j < n) {
-        const float* qr = Qs + g * D;
-        const float* kr = Ks + j * ldk;
-        s = 0.f;
-        for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-      }
-      Ps[g * ldp + j] = s;
-    }
-    __syncthreads();
-
-    // one warp per packed head: online-softmax update over this tile
-    for (int g = warp; g < G; g += WARPS) {
-      float* pg = Ps + g * ldp;
-      const float m_old = m[g];
-      const float s0 = pg[lane], s1 = pg[lane + 32];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = lane < n ? expf(s0 - m_new) : 0.f;
-      const float p1 = lane + 32 < n ? expf(s1 - m_new) : 0.f;
-      const float sum = warp_sum(p0 + p1);
-      pg[lane] = p0;
-      pg[lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha[g] = a;
-        l[g] = a * l[g] + sum;
-        m[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int e = tid; e < G * Dv; e += THREADS) {
-      const int g = e / Dv, c = e % Dv;
-      const float* pg = Ps + g * ldp;
-      float a = acc[e] * alpha[g];
-      for (int j = 0; j < n; ++j) a = fmaf(pg[j], Vs[j * Dv + c], a);
-      acc[e] = a;
-    }
+    lsum = warp_sum(lsum);
+    const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
+    for (int s = lane; s < live; s += 32) wts[g * NS + s] *= inv;
+    if (g == 0 && lane == 0) live_s = live;
   }
   __syncthreads();
+  const int live = live_s;
+  for (int i = tid; i < G * Dv; i += THREADS) {
+    const int g = i / Dv, c = i % Dv;
+    const float* a = part_acc + (head0 + g) * NS * Dv + c;
+    const float* w = wts + g * NS;
+    float sum = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < live; ++s) sum = fmaf(w[s], a[(size_t)s * Dv], sum);
+    o[(head0 + g) * Dv + c] = from_f<T>(sum);
+  }
+}
 
-  T* ob = o + ((size_t)b * Hq + (size_t)hk * G) * Dv;
-  for (int e = tid; e < G * Dv; e += THREADS) ob[e] = from_f<T>(acc[e] / fmaxf(l[e / Dv], 1e-30f));
+template <typename T, int GB>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* length,
+                   float* part_ml, float* part_acc, void* o, int B, int Smax, int Hq, int Hkv,
+                   int D, int Dv, int L, int split, int vec, float scale_log2,
+                   cudaStream_t stream) {
+  const int G = Hq / Hkv, NS = (Smax + split - 1) / split;
+  const size_t smem = sizeof(float) * WARPS * GB * (size_t)Dv;
+  decode_split_kernel<T, GB><<<dim3(Hkv * ((G + GB - 1) / GB), B, NS), THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), length,
+      part_ml, part_acc, Smax, Hq, Hkv, D, Dv, L, split, vec, scale_log2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto comb = decode_combine_kernel<T>;
+  const size_t cs = sizeof(float) * (size_t)G * NS;
+  if (cs > 48 * 1024) {
+    err = cudaFuncSetAttribute(comb, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cs);
+    if (err != cudaSuccess) return err;
+  }
+  comb<<<dim3(Hkv, B), THREADS, cs, stream>>>(part_ml, part_acc, static_cast<T*>(o), Hq, Hkv,
+                                              Dv, NS);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* length, void* o,
-                   int B, int Smax, int Hq, int Hkv, int D, int Dv, float scale,
-                   cudaStream_t stream) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, const int* length,
+                     float* part_ml, float* part_acc, void* o, int B, int Smax, int Hq,
+                     int Hkv, int D, int Dv, int L, int split, int vec, float sl2,
+                     cudaStream_t st) {
   const int G = Hq / Hkv;
-  const size_t smem = sizeof(float) * ((size_t)G * D + (size_t)BK * (D + 1) +
-                                       (size_t)BK * Dv + (size_t)G * (BK + 1) +
-                                       (size_t)G * Dv + 3 * (size_t)G);
-  auto kern = decode_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(Hkv, B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(length), static_cast<T*>(o), Smax, Hq, Hkv, D, Dv, scale);
-  return cudaGetLastError();
+  if (G == 1)
+    return launch<T, 1>(q, k, v, length, part_ml, part_acc, o, B, Smax, Hq, Hkv, D, Dv, L,
+                        split, vec, sl2, st);
+  if (G <= 4)
+    return launch<T, 4>(q, k, v, length, part_ml, part_acc, o, B, Smax, Hq, Hkv, D, Dv, L,
+                        split, vec, sl2, st);
+  return launch<T, 8>(q, k, v, length, part_ml, part_acc, o, B, Smax, Hq, Hkv, D, Dv, L, split,
+                      vec, sl2, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Layouts (contiguous): q (B,1,Hq,D),
 // k (B,Smax,Hkv,D), v (B,Smax,Hkv,Dv), length int32 (B,), o (B,1,Hq,Dv).
+// scratch: f32, B * Hq * ceil(Smax / split) * (2 + Dv) elements.
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
-                                    const void* length, void* o, int dtype, int B, int Smax,
-                                    int Hq, int Hkv, int D, int Dv, float scale,
-                                    void* stream) {
+                                    const void* length, void* o, void* scratch, int dtype,
+                                    int B, int Smax, int Hq, int Hkv, int D, int Dv, int split,
+                                    float scale, void* stream) {
   if (B <= 0 || Smax <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 || Dv <= 0 ||
-      Dv > 256)
+      Dv > 256 || split <= 0 || (Smax + split - 1) / split > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int NS = (Smax + split - 1) / split;
+  float* part_ml = static_cast<float*>(scratch);
+  float* part_acc = part_ml + (size_t)B * Hq * NS * 2;
+  const int width = D > Dv ? D : Dv;
+  int L = 4;  // lanes per row: L * 8 >= the wider head dim
+  while (L * E < width) L *= 2;
+  const int vec = D % E == 0 && Dv % E == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  const float sl2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2 e)
+  const int* len = static_cast<const int*>(length);
   cudaError_t err =
-      dtype == 1 ? launch<__nv_bfloat16>(q, k, v, length, o, B, Smax, Hq, Hkv, D, Dv, scale, st)
-      : dtype == 0 ? launch<float>(q, k, v, length, o, B, Smax, Hq, Hkv, D, Dv, scale, st)
+      dtype == 1 ? dispatch<__nv_bfloat16>(q, k, v, len, part_ml, part_acc, o, B, Smax, Hq, Hkv,
+                                           D, Dv, L, split, vec, sl2, st)
+      : dtype == 0 ? dispatch<float>(q, k, v, len, part_ml, part_acc, o, B, Smax, Hq, Hkv, D,
+                                     Dv, L, split, vec, sl2, st)
                    : cudaErrorInvalidValue;
   return (int)err;
 }

@@ -3,6 +3,13 @@
 Counterpart of ``repro/kernels/flash_attention.py`` (``flash_attention_pallas``).
 ``flash_attention`` launches the CUDA kernel for a CUDA tensor and takes the
 plain version (``ref.attention_ref``) only for a CPU tensor.
+
+The source has two bodies and ``body`` picks one by shape, before the
+launch: the tensor-core body for bf16 with both head dims multiples of 16
+(16-byte aligned tensors), the CUDA-core body for everything else (f32,
+which the tensor cores cannot keep to 2e-5, and odd bf16 head dims).  Every
+launch counts under ``flash_attention`` and under its body's own counter,
+``flash_attention.tc`` or ``flash_attention.simt``.
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ import torch
 from . import _build
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "flash_attention_cuda", "NAME"]
+__all__ = ["flash_attention", "flash_attention_cuda", "body", "NAME"]
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -22,7 +29,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             ctypes.c_float, _P],
+    "flash_attention_tc_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_float, _P],
 }
+
+
+def body(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"tc"`` (tensor cores) for bf16 with D % 16 == 0, Dv % 16 == 0 and
+    16-byte aligned q/k/v; ``"simt"`` (CUDA cores) for everything else."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and q.shape[-1] % 16 == 0 and v.shape[-1] % 16 == 0 and aligned:
+        return "tc"
+    return "simt"
 
 
 def flash_attention_cuda(
@@ -54,12 +72,14 @@ def flash_attention_cuda(
         raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
     lib = _build.load(NAME, _SIGNATURES)
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
-    _build.launch(
-        NAME, lib.flash_attention_fwd,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
-        b, sq, sk, hq, hkv, d, dv, int(causal), int(sliding_window or 0),
-        1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    shape = (b, sq, sk, hq, hkv, d, dv, int(causal), int(sliding_window or 0), 1.0 / (d ** 0.5))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if body(q, k, v) == "tc":
+        _build.launch((NAME, NAME + ".tc"), lib.flash_attention_tc_fwd, *ptrs, *shape, stream)
+    else:
+        _build.launch((NAME, NAME + ".simt"), lib.flash_attention_fwd, *ptrs,
+                      _DTYPES[q.dtype], *shape, stream)
     return out
 
 

@@ -7,8 +7,8 @@ from typing import Optional, Union
 import torch
 
 __all__ = [
-    "attention_ref", "decode_attention_ref", "quantize_kv", "decode_attention_q8_ref",
-    "ssd_scan_ref",
+    "attention_ref", "decode_attention_ref", "decode_split_partials_ref",
+    "decode_split_combine_ref", "quantize_kv", "decode_attention_q8_ref", "ssd_scan_ref",
 ]
 
 _NEG = -1e30
@@ -78,6 +78,51 @@ def decode_attention_ref(
     out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
     out = out * (lim > 0).to(out.dtype)[:, None, None, None, None]
     return out.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def decode_split_partials_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    length: Union[int, torch.Tensor],
+    split: int,
+):
+    """The split-K decode's first pass, plainly.  The cache rows are cut
+    into NS = ceil(Smax / split) pieces; for piece s, rows
+    [s * split, (s + 1) * split) below min(length, Smax), and each query
+    head: m = the largest score (-inf for an empty piece), l = sum of
+    exp(score - m), acc = sum of exp(score - m) v.  Returns m, l (B, Hq, NS)
+    and acc (B, Hq, NS, Dv), in f32."""
+    b, _, hq, d = q.shape
+    smax, hkv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = hq // hkv
+    ns = -(-smax // split)
+    pad = (0, 0, 0, 0, 0, ns * split - smax)  # zero rows up to NS * split
+    kf = torch.nn.functional.pad(k.float(), pad)
+    vf = torch.nn.functional.pad(v.float(), pad).reshape(b, ns, split, hkv, dv)
+    scores = torch.einsum("bhgd,bkhd->bhgk", q.reshape(b, hkv, g, d).float(), kf) / (d ** 0.5)
+    lim = torch.as_tensor(length, device=q.device).clamp(0, smax).expand(b)
+    valid = torch.arange(ns * split, device=q.device)[None, :] < lim[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    scores = scores.reshape(b, hkv, g, ns, split)
+    m = scores.amax(-1)
+    p = torch.exp(scores - m.masked_fill(m == float("-inf"), 0.0)[..., None])
+    acc = torch.einsum("bhgsk,bskhd->bhgsd", p, vf)
+    return m.reshape(b, hq, ns), p.sum(-1).reshape(b, hq, ns), acc.reshape(b, hq, ns, dv)
+
+
+def decode_split_combine_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                             dtype: torch.dtype) -> torch.Tensor:
+    """The split-K decode's second pass: each head's partials weighted by
+    exp(m_s - max m), summed, over the weighted sum of l.  An empty piece
+    weighs 0; a head with no valid row gets zeros.  -> (B, 1, Hq, Dv)."""
+    mt = m.amax(-1, keepdim=True)
+    w = torch.exp(m - mt.masked_fill(mt == float("-inf"), 0.0))
+    lt = (w * l).sum(-1)
+    out = (w[..., None] * acc).sum(-2) / lt.masked_fill(lt == 0, 1.0)[..., None]
+    b, hq, _, dv = acc.shape
+    return out.reshape(b, 1, hq, dv).to(dtype)
 
 
 def quantize_kv(k: torch.Tensor):

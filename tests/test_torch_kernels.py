@@ -202,6 +202,76 @@ def test_decode_attention_length_above_smax_is_full_cache():
     assert torch.equal(over, full)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split", [1, 7, 64, 100, 256])
+def test_decode_split_ref_matches_decode_ref_and_pallas(dtype, split):
+    """The split-K decode, done plainly (per-split partials, then their
+    combine), against the one-pass plain version and the Pallas kernel, at
+    lengths 0, 1, split - 1, split, split + 1, Smax and past Smax in one
+    batch."""
+    b, smax, hq, hkv, d = 7, 256, 6, 2, 64
+    lens = [0, 1, max(split - 1, 0), split, split + 1, smax, smax + 9]
+    (tq, tk, tv), arrs = _inputs(11, dtype, (b, 1, hq, d), (b, smax, hkv, d), (b, smax, hkv, d))
+    length = torch.tensor(lens, dtype=torch.int32)
+    m, l, acc = tref.decode_split_partials_ref(tq, tk, tv, length, split)
+    n_splits = -(-smax // split)
+    assert m.shape == l.shape == (b, hq, n_splits) and acc.shape == (b, hq, n_splits, d)
+    got = tref.decode_split_combine_ref(m, l, acc, tq.dtype)
+    assert got.dtype == tq.dtype and got.shape == (b, 1, hq, d)
+    np.testing.assert_allclose(_np(got), _np(tref.decode_attention_ref(tq, tk, tv, length)),
+                               **_tol(dtype))
+    jnp, jref, flash_attention_pallas, decode_attention_pallas = _jax()
+    q, k, v = _jax_inputs(arrs, dtype)
+    pallas = decode_attention_pallas(q, k, v, length=jnp.asarray(lens, jnp.int32), block_k=64,
+                                     interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), **_tol(dtype))
+
+
+@pytest.mark.parametrize("split", [1, 64, 100])
+def test_decode_split_partials_empty_past_the_length(split):
+    """A piece that starts at or past the (clamped) length is empty: m = -inf,
+    l = 0, acc = 0, and it weighs nothing in the combine."""
+    b, smax, hq, hkv, d = 4, 256, 4, 2, 32
+    lens = [0, split, 200, 1000]
+    (tq, tk, tv), _ = _inputs(12, "float32", (b, 1, hq, d), (b, smax, hkv, d), (b, smax, hkv, d))
+    m, l, acc = tref.decode_split_partials_ref(tq, tk, tv, torch.tensor(lens), split)
+    for i, n in enumerate(lens):
+        live = -(-min(n, smax) // split)
+        assert torch.isinf(m[i, :, live:]).all() and (m[i, :, live:] < 0).all()
+        assert not l[i, :, live:].any() and not acc[i, :, live:].any()
+        assert torch.isfinite(m[i, :, :live]).all() and (l[i, :, :live] >= 1).all()
+    out = tref.decode_split_combine_ref(m, l, acc, tq.dtype)
+    assert not out[0].any()
+
+
+@pytest.mark.parametrize(
+    "dtype,d,dv,body",
+    [
+        ("bfloat16", 64, 64, "tc"),  # smollm-135m, zamba2-1.2b
+        ("bfloat16", 32, 32, "tc"),
+        ("bfloat16", 80, 80, "tc"),
+        ("bfloat16", 128, 256, "tc"),
+        ("bfloat16", 40, 40, "simt"),  # not a multiple of 16
+        ("bfloat16", 64, 72, "simt"),
+        ("float32", 64, 64, "simt"),  # f32 keeps 2e-5 only on the CUDA cores
+    ],
+)
+def test_flash_body_routing_by_shape(dtype, d, dv, body):
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v), _ = _inputs(13, dtype, (1, 4, 2, d), (1, 4, 2, d), (1, 4, 2, dv))
+    assert fa.body(q, k, v) == body
+
+
+def test_flash_body_routing_misaligned_view_takes_cuda_cores():
+    from repro_torch.kernels import flash_attention as fa
+
+    (q,), _ = _inputs(14, "bfloat16", (1, 4 * 64 * 2 + 1))
+    view = q[0, 1:].view(1, 4, 2, 64)  # 2 bytes past an aligned start
+    assert view.data_ptr() % 16 == 2
+    assert fa.body(view, view, view) == "simt"
+
+
 def test_ops_on_cpu_dispatch_to_plain_versions_without_launches():
     ops.reset_launch_counts()
     (tq, tk, tv), _ = _inputs(7, "float32", (1, 64, 4, 32), (1, 64, 2, 32), (1, 64, 2, 32))
@@ -266,3 +336,67 @@ def test_decode_attention_cuda_matches_plain(cuda, dtype, b, smax, hq, hkv, d, l
     assert ops.launch_counts()["decode_attention"] == before + 1
     want = tref.decode_attention_ref(q, k, v, length=length)
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,sq,sk,hq,hkv,d,dv,causal,window",
+    [
+        (2, 300, 300, 8, 2, 32, 32, True, None),  # head dims of the tensor-core body
+        (2, 300, 300, 8, 2, 80, 80, True, None),
+        (2, 300, 300, 8, 2, 128, 128, True, None),
+        (2, 300, 300, 8, 2, 256, 256, True, None),
+        (1, 77, 150, 4, 4, 128, 256, False, None),
+        (2, 100, 300, 4, 2, 128, 256, True, None),
+        (2, 100, 300, 8, 2, 64, 64, True, None),  # Sq < Sk
+        (2, 1, 300, 9, 3, 64, 64, True, None),
+        (2, 256, 256, 4, 2, 64, 64, True, 32),  # windows
+        (2, 256, 256, 4, 2, 64, 64, True, 100),
+        (2, 300, 300, 9, 3, 64, 64, True, 100),
+        (2, 150, 77, 6, 2, 64, 64, False, None),
+        (2, 1, 1, 9, 3, 64, 64, True, None),  # ragged S
+        (2, 15, 15, 9, 3, 64, 64, True, None),
+        (2, 17, 17, 9, 3, 64, 64, True, None),
+        (2, 1023, 1023, 9, 3, 64, 64, True, None),
+        (1, 128, 128, 4, 2, 40, 40, True, None),  # the CUDA-core body in bf16
+    ],
+)
+def test_flash_attention_cuda_bf16_bodies(cuda, b, sq, sk, hq, hkv, d, dv, causal, window):
+    from repro_torch.kernels import flash_attention as fa
+
+    (q, k, v), _ = _inputs(15, "bfloat16", (b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, dv))
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    body = "tc" if d % 16 == 0 and dv % 16 == 0 else "simt"
+    assert fa.body(q, k, v) == body
+    before = ops.launch_counts().get(f"flash_attention.{body}", 0)
+    got = ops.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[f"flash_attention.{body}"] == before + 1
+    want = tref.attention_ref(q, k, v, causal=causal, sliding_window=window)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split", [16, 64, 128])
+@pytest.mark.parametrize("hq,hkv", [(9, 3), (32, 32), (16, 2)])
+def test_decode_attention_cuda_split_edges(cuda, monkeypatch, dtype, split, hq, hkv):
+    """Lengths 0, 1, split - 1, split, split + 1, Smax and past Smax in one
+    batch, at several splits, against the plain version and the plain
+    split-K decode."""
+    from repro_torch.kernels import decode_attention as dec
+
+    monkeypatch.setattr(dec, "SPLIT", split)
+    b, smax, d = 8, 2048, 64
+    lens = [0, 1, split - 1, split, split + 1, smax, smax + 952, 700]
+    (q, k, v), _ = _inputs(16, dtype, (b, 1, hq, d), (b, smax, hkv, d), (b, smax, hkv, d))
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = dec.decode_attention_cuda(q, k, v, length)
+    torch.cuda.synchronize()
+    assert not got[0].float().any()
+    want = tref.decode_attention_ref(q, k, v, length)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **_tol(dtype))
+    split_ref = tref.decode_split_combine_ref(
+        *tref.decode_split_partials_ref(q, k, v, length, split), q.dtype)
+    np.testing.assert_allclose(_np(got.cpu()), _np(split_ref.cpu()), **_tol(dtype))
