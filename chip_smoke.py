@@ -11,9 +11,11 @@ Phases, each of which passes or raises (any failure exits non-zero):
   3. each kernel against its plain PyTorch version on the card, at the
      serving paths' shapes and at the reference test sweeps, within the
      stated tolerance (attention bf16 2e-2, f32 2e-5; SSD scan bf16 5e-2,
-     f32 5e-5 atol / 5e-4 rtol, the reference sweep's own), each flash case
-     through the body its shape selects (tensor cores for bf16 with head
-     dims that are multiples of 16), decode at lengths around its split;
+     f32 5e-5 atol / 5e-4 rtol, the reference sweep's own), each flash and
+     SSD case through the body its shape selects (tensor cores for bf16 with
+     head dims, or P and N, that are multiples of 16), both decode kernels
+     at lengths around their split, the SSD scan around its 64-step chunk
+     and on strided views of one tensor as mamba2_block hands them over;
   4. three engine runs at full width through repro_torch.launch.serve's
      engine path, each of 16 seeded requests with bf16 seeded random weights:
      smollm-135m, zamba2-1.2b (Mamba-2 + shared attention), and smollm-135m
@@ -21,7 +23,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
      are zeroed just before each run and read just after; each run must
      have launched the kernels of its path (zamba2: the SSD scan exactly
      once per Mamba-2 layer per request; int8: only the int8 decode kernel;
-     every flash launch through the tensor-core body);
+     every flash and every SSD launch through the tensor-core body), and
+     each count must equal EXPECTED_LAUNCHES (the request mix fixes them);
   5. smollm-135m and zamba2-1.2b on the card, in bf16 and with the same
      weights in f32, against f32 on the CPU (plain versions): prefill and one
      decode step's logits, and the number of greedy tokens that agree;
@@ -77,6 +80,18 @@ ENGINE_F32_REL_TOL = 1e-3
 MIX = ["--device", "cuda", "--slots", "8", "--max-len", "2048", "--requests", "16",
        "--prompt-len", "32", "701", "--min-new", "32", "--max-new", "65", "--seed", "0"]
 SMOLLM, ZAMBA2 = "smollm-135m", "zamba2-1.2b"
+INT8 = "smollm-135m int8-KV"
+#: launches per kernel in each engine run of MIX (16 prefills, 115 decode
+#: steps): smollm 30 attention layers, zamba2 38 Mamba-2 layers and 6 shared
+#: attention applications
+EXPECTED_LAUNCHES = {
+    SMOLLM: {"flash_attention": 480, "decode_attention": 3450, "decode_attention_q8": 0,
+             "ssd_scan": 0},
+    ZAMBA2: {"flash_attention": 96, "decode_attention": 690, "decode_attention_q8": 0,
+             "ssd_scan": 608},
+    INT8: {"flash_attention": 480, "decode_attention": 0, "decode_attention_q8": 3450,
+           "ssd_scan": 0},
+}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -120,8 +135,8 @@ def time_ms(fn, inputs, iters: int = 30) -> float:
 def device_ms(fn, inputs, names=(), iters: int = 30):
     """Device time per call: the summed durations of the device kernels that
     ``iters`` calls launch (only those whose names contain one of ``names``,
-    where given), from a torch.profiler trace.  Returns (ms, source, kernel
-    names); raises if the trace holds no such device event."""
+    where given), from a torch.profiler trace.  Returns (ms, source, ms per
+    call by kernel name); raises if the trace holds no such device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -136,8 +151,11 @@ def device_ms(fn, inputs, names=(), iters: int = 30):
               and (not names or any(n in e.name for n in names))]
     if not events:
         raise AssertionError(f"device time: the profiler recorded no device kernel {names}")
-    us = sum(e.time_range.end - e.time_range.start for e in events)
-    return us / iters / 1e3, "torch.profiler", sorted({e.name[:80] for e in events})
+    by_name = {}
+    for e in events:
+        key = e.name[:80]
+        by_name[key] = by_name.get(key, 0.0) + (e.time_range.end - e.time_range.start) / iters / 1e3
+    return sum(by_name.values()), "torch.profiler", dict(sorted(by_name.items()))
 
 
 def copies_past_l2(nbytes: int) -> int:
@@ -267,6 +285,10 @@ def phase_kernels(torch, ops, ref, fa, dec, q8, ssd):
         ("smollm 8 slots, Smax=2048", dn, 8, 2048, 9, 3, 64, [1, 2048, 3000, 5, 700, 64, 65, 128])
         for dn in ("bfloat16", "float32")
     ]
+    sp = q8.SPLIT  # lengths around the split-K boundaries, in one batch
+    edges = [0, 1, sp - 1, sp, sp + 1, 2048, 3000, 700]
+    q8_cases += [(f"split edges {edges}", dn, 8, 2048, hq_, hkv_, 64, edges)
+                 for dn in ("bfloat16", "float32") for hq_, hkv_ in ((9, 3), (32, 32))]
     for b, smax, hq, hkv, d, n in [(2, 256, 8, 2, 64, 137), (1, 512, 4, 4, 64, 512),
                                    (2, 256, 16, 2, 64, 200)]:  # tests/test_kernels.py q8 sweep
         q8_cases.append((f"sweep {b}x{smax}x{hq}/{hkv}x{d} len={n}", "float32", b, smax, hq, hkv,
@@ -284,7 +306,8 @@ def phase_kernels(torch, ops, ref, fa, dec, q8, ssd):
 
     ssd_cases = [  # (label, dtype, B, S, H, P, N, initial state)
         (f"zamba2 prefill S={s_}{' +h0' if h0 else ''}", dn, 1, s_, 32, 128, 64, h0)
-        for s_ in (32, 300, 700) for dn in ("bfloat16", "float32") for h0 in (False, True)
+        for s_ in (1, 33, 63, 64, 65, 128, 300, 673, 700) for dn in ("bfloat16", "float32")
+        for h0 in (False, True)
     ]
     for dn in ("float32", "bfloat16"):  # tests/test_kernels.py ssd sweep
         for b, s_, h, p, n in [(1, 128, 2, 16, 8), (2, 256, 4, 32, 16), (1, 64, 8, 8, 64)]:
@@ -292,11 +315,43 @@ def phase_kernels(torch, ops, ref, fa, dec, q8, ssd):
     for label, dn, b, s_, h, p, n, with_h0 in ssd_cases:
         x, dt, A, Bm, Cm = ssd_inputs(torch, gen, dts[dn], b, s_, h, p, n)
         h0 = rn((b, h, p, n), torch.float32) if with_h0 else None
-        y, hT = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, h0)
-        torch.cuda.synchronize()
+        want_body = "tc" if dn == "bfloat16" and p % 16 == 0 and n % 16 == 0 else "simt"
+        y, hT = run_ssd(torch, ops, ssd, want_body, f"{label} {dn}", x, dt, A, Bm, Cm, h0)
         wy, wh = ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0)
-        check_close(f"ssd_scan y {label} {dn}", y, wy, dn, SSD_TOL)
-        check_close(f"ssd_scan hT {label} {dn}", hT, wh, dn, SSD_TOL)
+        check_close(f"ssd_scan y {label} {dn} ({want_body})", y, wy, dn, SSD_TOL)
+        check_close(f"ssd_scan hT {label} {dn} ({want_body})", hT, wh, dn, SSD_TOL)
+    # x, B, C as views of one (B, S, d_inner + 2N) convolution output, as
+    # mamba2_block hands them over: read in place, equal to contiguous copies
+    for dn in ("bfloat16", "float32"):
+        for s_ in (65, 673):
+            h, p, n = 32, 128, 64
+            _, dt, A, _, _ = ssd_inputs(torch, gen, dts[dn], 1, s_, h, p, n)
+            xbc = (torch.randn((1, s_, h * p + 2 * n), generator=gen, device="cuda") * 0.5).to(dts[dn])
+            x = xbc[..., :h * p].reshape(1, s_, h, p)
+            Bm, Cm = xbc[..., h * p: h * p + n], xbc[..., h * p + n:]
+            want_body = "tc" if dn == "bfloat16" else "simt"
+            label = f"strided views S={s_} {dn}"
+            y, hT = run_ssd(torch, ops, ssd, want_body, label, x, dt, A, Bm, Cm, None)
+            yc, hc = ssd.ssd_scan_cuda(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous())
+            torch.cuda.synchronize()
+            if not (torch.equal(y, yc) and torch.equal(hT, hc)):
+                raise AssertionError(f"ssd_scan {label}: strided and contiguous inputs differ")
+            wy, wh = ref.ssd_scan_ref(x, dt, A, Bm, Cm)
+            check_close(f"ssd_scan y {label} ({want_body}, == contiguous)", y, wy, dn, SSD_TOL)
+            check_close(f"ssd_scan hT {label} ({want_body}, == contiguous)", hT, wh, dn, SSD_TOL)
+
+
+def run_ssd(torch, ops, ssd, want_body, label, x, dt, A, Bm, Cm, h0):
+    """One ssd_scan_cuda call that must take ``want_body`` and count once
+    under it."""
+    if ssd.body(x, Bm, Cm) != want_body:
+        raise AssertionError(f"ssd_scan {label}: body {ssd.body(x, Bm, Cm)}, expected {want_body}")
+    before = ops.launch_counts().get(f"ssd_scan.{want_body}", 0)
+    out = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, h0)
+    torch.cuda.synchronize()
+    require(ops.launch_counts(), f"ssd_scan.{want_body}",
+            ops.launch_counts().get(f"ssd_scan.{want_body}", 0) == before + 1, f"{before + 1}")
+    return out
 
 
 def ssd_inputs(torch, gen, dtype, b, s, h, p, n):
@@ -345,9 +400,16 @@ def require(counts, name: str, ok: bool, want: str) -> None:
 
 
 def require_tc(counts) -> None:
-    """Every flash launch of an engine run went through the tensor-core body."""
-    n = counts.get("flash_attention", 0)
-    require(counts, "flash_attention.tc", counts.get("flash_attention.tc", 0) == n, f"{n}")
+    """Every flash and every SSD launch of an engine run went through the
+    tensor-core body."""
+    for name in ("flash_attention", "ssd_scan"):
+        n = counts.get(name, 0)
+        require(counts, f"{name}.tc", counts.get(f"{name}.tc", 0) == n, f"{n}")
+
+
+def require_expected(counts, path: str) -> None:
+    for name, n in EXPECTED_LAUNCHES[path].items():
+        require(counts, name, counts.get(name, 0) == n, f"{n} in the {path} run")
 
 
 def phase_engines(torch, ops, serve, layers):
@@ -356,6 +418,7 @@ def phase_engines(torch, ops, serve, layers):
     for name in ("flash_attention", "decode_attention"):
         require(counts, name, counts.get(name, 0) > 0, "> 0")
     require_tc(counts)
+    require_expected(counts, SMOLLM)
     runs[SMOLLM] = (res, counts, reqs)
 
     res, counts, reqs = phase_engine(torch, ops, serve, layers, ZAMBA2)
@@ -368,6 +431,7 @@ def phase_engines(torch, ops, serve, layers):
             n_req * model.n_shared_apps, f"{n_req} x {model.n_shared_apps}")
     require(counts, "decode_attention", counts.get("decode_attention", 0) > 0, "> 0")
     require_tc(counts)
+    require_expected(counts, ZAMBA2)
     runs[ZAMBA2] = (res, counts, reqs)
 
     res, counts, reqs = phase_engine(torch, ops, serve, layers, SMOLLM, kv_quant=True)
@@ -375,7 +439,8 @@ def phase_engines(torch, ops, serve, layers):
     require(counts, "decode_attention", counts.get("decode_attention", 0) == 0, "0")
     require(counts, "flash_attention", counts.get("flash_attention", 0) > 0, "> 0")
     require_tc(counts)
-    runs["smollm-135m int8-KV"] = (res, counts, reqs)
+    require_expected(counts, INT8)
+    runs[INT8] = (res, counts, reqs)
     return runs
 
 
@@ -429,16 +494,29 @@ def device_times(kernel, names, library, sets) -> dict:
     """device_ms of a kernel's wrapper (its own device kernels, by name) and,
     where one PyTorch call computes the same function, library_device_ms
     (every device kernel that call launches)."""
-    dev, src, knames = device_ms(kernel, sets, names)
-    out = dict(device_ms=dev, device_ms_source=src, device_kernels=knames,
-               library_device_ms=None)
+    dev, src, by_kernel = device_ms(kernel, sets, names)
+    out = dict(device_ms=dev, device_ms_source=src, device_kernels=sorted(by_kernel),
+               device_ms_by_kernel=by_kernel, library_device_ms=None)
     if library is not None:
-        ldev, _, lnames = device_ms(library, sets)
-        out.update(library_device_ms=ldev, library_device_kernels=lnames)
+        ldev, _, lby = device_ms(library, sets)
+        out.update(library_device_ms=ldev, library_device_kernels=sorted(lby))
     return out
 
 
-def time_flash(torch, F, ref, fa, gen, s, hq, hkv, d=64, b=1):
+def check_rc(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"kernel launch failed: cudaError_t {rc}")
+
+
+def simt_times(fn, names, want, sets) -> dict:
+    """The CUDA-core body at a shape that selects the tensor cores, called
+    through its library directly (no launch count): its error against the
+    plain version and its device time, for the kernel table's older rows."""
+    dev, _, _ = device_ms(fn, sets, names)
+    return dict(simt_max_abs_err=max_err(fn(*sets[0]), want), simt_device_ms=dev)
+
+
+def time_flash(torch, F, ref, fa, _build, gen, s, hq, hkv, d=64, b=1):
     """flash_attention on bf16 q (b,s,hq,d), k/v (b,s,hkv,d), causal."""
     shapes = ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))
     per_set = sum(math.prod(x) for x in shapes) * 2 + b * s * hq * d * 2
@@ -454,9 +532,17 @@ def time_flash(torch, F, ref, fa, gen, s, hq, hkv, d=64, b=1):
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                               v.transpose(1, 2), is_causal=True, enable_gqa=True)
 
+    def simt(q, k, v):  # the CUDA-core body the shape does not select, for the record
+        o = torch.empty_like(q)
+        check_rc(_build.load(fa.NAME, fa._SIGNATURES).flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, b, s, s, hq, hkv, d, d, 1,
+            0, 1.0 / d ** 0.5, torch.cuda.current_stream().cuda_stream))
+        return o
+
     return dict(
         shape=f"q({b},{s},{hq},{d}) kv({b},{s},{hkv},{d}) bf16 causal",
         body=fa.body(q, k, v),
+        **simt_times(simt, ("fa_fwd_kernel",), ref.attention_ref(q, k, v, True), sets),
         max_abs_err=max_err(kernel(q, k, v), ref.attention_ref(q, k, v, True)),
         ms=time_ms(kernel, sets),
         plain_ms=time_ms(lambda q, k, v: ref.attention_ref(q, k, v, True), sets),
@@ -497,7 +583,7 @@ def time_decode(torch, F, ref, dec, gen, lens, hq, hkv, d=64, smax=2048):
     )
 
 
-def phase_timing(torch, F, ref, fa, dec, q8, ssd, runs):
+def phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs):
     """Each kernel at its serving path's shapes.  The attention kernels run on
     two paths with different head layouts, so their entries also carry the
     zamba2-1.2b shapes (``zamba2``, with that run's launches)."""
@@ -519,9 +605,9 @@ def phase_timing(torch, F, ref, fa, dec, q8, ssd, runs):
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:90",
         launches=counts.get("flash_attention", 0), launches_path=SMOLLM,
-        **time_flash(torch, F, ref, fa, gen, s, hq, hkv, d),
+        **time_flash(torch, F, ref, fa, _build, gen, s, hq, hkv, d),
         zamba2=dict(launches=z_counts.get("flash_attention", 0),
-                    **time_flash(torch, F, ref, fa, gen, max(len(r.prompt) for r in z_reqs),
+                    **time_flash(torch, F, ref, fa, _build, gen, max(len(r.prompt) for r in z_reqs),
                                  *z_heads)),
     ))
 
@@ -541,7 +627,7 @@ def phase_timing(torch, F, ref, fa, dec, q8, ssd, runs):
     ))
 
     # --- int8 decode attention: the same 8 slots over an int8 cache ---------
-    _, q8_counts, _ = runs["smollm-135m int8-KV"]
+    _, q8_counts, _ = runs[INT8]
     kv_bytes = sum(lens) * hkv * ((d + d) * 1 + 2 * 4)  # int8 rows + f32 scales
     per_set = kv_bytes + 2 * bsz * hq * d * 2 + bsz * 4
     n_sets = copies_past_l2(bsz * smax * hkv * (d * 2 + 8))
@@ -558,14 +644,14 @@ def phase_timing(torch, F, ref, fa, dec, q8, ssd, runs):
         replaces="src/repro/kernels/decode_attention.py:171",
         shape=f"q({bsz},1,{hq},{d}) bf16, int8 cache({bsz},{smax},{hkv},{d}) + f32 scales, "
               f"lengths {lens}",
-        launches=q8_counts.get("decode_attention_q8", 0), launches_path="smollm-135m int8-KV",
+        launches=q8_counts.get("decode_attention_q8", 0), launches_path=INT8, split=q8.SPLIT,
         max_abs_err=max_err(q8.decode_attention_q8_cuda(*sets[0], length),
                             ref.decode_attention_q8_ref(*sets[0], length)),
         ms=time_ms(lambda *a: q8.decode_attention_q8_cuda(*a, length), sets),
         plain_ms=time_ms(lambda *a: ref.decode_attention_q8_ref(*a, length), sets),
         library_ms=None,  # no single PyTorch call computes attention over an int8 cache
-        **device_times(lambda *a: q8.decode_attention_q8_cuda(*a, length), ("decode_q8_kernel",),
-                       None, sets),
+        **device_times(lambda *a: q8.decode_attention_q8_cuda(*a, length),
+                       ("decode_q8_split_kernel", "decode_combine_kernel"), None, sets),
         **bound(per_set, 2 * hq * sum(lens) * (d + d)),
     ))
     del sets
@@ -586,6 +672,15 @@ def phase_timing(torch, F, ref, fa, dec, q8, ssd, runs):
     flops = b * (2 * pairs * n + h * (2 * pairs * p + 4 * s * p * n))
     y, hT = ssd.ssd_scan_cuda(*sets[0])
     wy, wh = ref.ssd_scan_ref(*sets[0])
+
+    def ssd_simt(x, dt, A, Bm, Cm, h0):  # the CUDA-core body the shape does not select
+        yo, ho = torch.empty_like(x), torch.empty_like(h0)
+        check_rc(_build.load(ssd.NAME, ssd._SIGNATURES).ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            h0.data_ptr(), yo.data_ptr(), ho.data_ptr(), 1, b, s, h, p, n, x.stride(0),
+            x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+            torch.cuda.current_stream().cuda_stream))
+        return yo
     entries.append(dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -596,11 +691,17 @@ def phase_timing(torch, F, ref, fa, dec, q8, ssd, runs):
         ms=time_ms(lambda *a: ssd.ssd_scan_cuda(*a), sets),
         plain_ms=time_ms(lambda *a: ref.ssd_scan_ref(*a), sets, iters=3),
         library_ms=None,  # no single PyTorch call computes a selective scan
-        **device_times(lambda *a: ssd.ssd_scan_cuda(*a), ("ssd_kernel",), None, sets),
+        body=ssd.body(*sets[0][:1], *sets[0][3:5]),
+        **simt_times(ssd_simt, ("ssd_kernel<",), wy, sets),
+        **device_times(lambda *a: ssd.ssd_scan_cuda(*a),
+                       ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel",
+                        "ssd_kernel"), None, sets),
         **bound(per_set, flops),
     ))
     del sets
 
+    # the int8 decode reads about half the bf16 decode's bytes at the same lengths
+    entries[2]["device_ms_vs_bf16_decode"] = entries[2]["device_ms"] / entries[1]["device_ms"]
     for e in entries:
         e["launches_by_path"] = {k: v[e["name"]] for k, v in by_path.items()}
         e["kernel_ms"] = e["ms"]
@@ -634,7 +735,7 @@ def main() -> int:
     runs = phase_engines(torch, ops, serve, layers)
     for arch in (SMOLLM, ZAMBA2):
         phase_vs_cpu(torch, runs[arch][0], Engine, EngineConfig, Request, bundle, tree_map)
-    entries = phase_timing(torch, F, ref, fa, dec, q8, ssd, runs)
+    entries = phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs)
     for e in entries:
         for path, t in [(e["launches_path"], e)] + ([(ZAMBA2, e["zamba2"])] if "zamba2" in e
                                                      else []):
@@ -642,8 +743,9 @@ def main() -> int:
                 f"{t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} ms")
             log(f"  {e['name']} {t['shape']}: {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms "
                 f"({t['device_ms_source']}; bound {t['bound_ms']:.5f} ms by {t['bound_by']}, "
-                f"plain {t['plain_ms']:.4f} ms, library {lib}), "
-                f"{t['launches']} launches in the {path} run")
+                f"plain {t['plain_ms']:.4f} ms, library {lib}"
+                + (f", CUDA-core body device {t['simt_device_ms']:.4f} ms" if "simt_device_ms" in t
+                   else "") + f"), {t['launches']} launches in the {path} run")
     for arch, (res, _, _) in runs.items():
         log(f"  engine {arch}: {res['tok_per_s']:.1f} tok/s")
     log(f"total {time.perf_counter() - t_start:.1f}s")

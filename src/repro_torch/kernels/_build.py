@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 the checkout's ``build/`` directory and loaded with ``ctypes``; the library's
-file name carries a hash of the source and flags, so an edited source is
-rebuilt and a stale one is never loaded.  Nothing here runs at import time:
+file name carries a hash of the flags, the source and every ``csrc/`` header
+it includes, so an edited source or header is rebuilt and a stale library is
+never loaded.  Nothing here runs at import time:
 the CPU tests import every module without a CUDA toolkit.
 
 ``launch`` is the one place a kernel is started.  It counts the launch and
@@ -16,12 +17,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Union
 
 __all__ = [
     "CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "launch",
@@ -53,10 +55,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: Optional[List[Path]] = None) -> List[Path]:
+    """``path`` and every header under ``csrc/`` it includes, transitively."""
+    seen = [] if seen is None else seen
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        header = path.parent / inc.decode()
+        if header.exists():
+            _sources(header, seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(CSRC / f"{name}.cu"):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:

@@ -33,10 +33,11 @@
 //   four warps, merge their softmax states, and the block writes
 //   (m, l, acc[G][Dv]) in f32 to a scratch tensor the wrapper allocates.
 //   Query heads beyond 8 per group go to further blocks (head chunks).
-// * decode_combine_kernel: one block per (KV head group, sequence) merges
-//   the NS partials of all its G heads at once and writes o in q's dtype.
-//   The live pieces (l > 0) are a prefix, so their partials are read with
-//   independent loads, not one dependent load per piece.
+// * decode_combine_kernel (decode_split.cuh, shared with the int8 decode):
+//   one block per (KV head group, sequence) merges the NS partials of all
+//   its G heads at once and writes o in q's dtype.  The live pieces (l > 0)
+//   are a prefix, so their partials are read with independent loads, not
+//   one dependent load per piece.
 //
 // split = 64 (the wrapper's SPLIT): 8 smollm-135m slots at Smax = 2048 launch
 // 3 x 8 x 32 = 768 blocks (>= 2 x 132 SMs), and the ~3300 live rows of a
@@ -46,24 +47,11 @@
 //
 // C interface, called through ctypes; returns the cudaError_t of the
 // launches.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
 constexpr int E = 8;  // elements of a row per lane
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // A lane's 8 elements of a row as they sit in memory: one 16-byte word for
 // bf16, two for f32.  Rows in flight stay in this form (4 registers per bf16
@@ -123,10 +111,6 @@ __device__ __forceinline__ void widen(const Raw<float>& x, float (&f)[E]) {
   f[4] = __uint_as_float(x.w1.x); f[5] = __uint_as_float(x.w1.y);
   f[6] = __uint_as_float(x.w1.z); f[7] = __uint_as_float(x.w1.w);
 }
-
-// (m, l) of two softmax states in log2 units -> the merged max and the two
-// weights; a state with no row yet has m = -inf and weight 0
-__device__ __forceinline__ float merge_base(float m) { return m == -INFINITY ? 0.f : m; }
 
 // GB: query heads per block (a chunk of the group); L: lanes per row (runtime,
 // a power of two <= 32, L * E >= max(D, Dv)).
@@ -286,66 +270,6 @@ __global__ void __launch_bounds__(THREADS) decode_split_kernel(
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// one block per (KV head group, sequence): o[h] = sum_s w_s acc_s / sum_s w_s l_s
-// with w_s = exp2(m_s - max m), for each of the group's G heads at once.
-// The pieces that hold a row (l > 0) are a prefix of the NS pieces, the
-// same for every head of a sequence; only they are read for acc, with
-// independent loads (unrolled by 4; the minimum of one block per SM lets
-// ptxas give that loop 40 registers instead of spilling at 32).  No live
-// piece (length 0): zeros.
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1) decode_combine_kernel(
-    const float* __restrict__ part_ml, const float* __restrict__ part_acc, T* __restrict__ o,
-    int Hq, int Hkv, int Dv, int NS) {
-  extern __shared__ float wts[];  // G x NS
-  __shared__ int live_s;
-  const int G = Hq / Hkv, hk = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t head0 = (size_t)b * Hq + (size_t)hk * G;
-  for (int g = warp; g < G; g += WARPS) {  // a warp per head: the weights
-    const float* ml = part_ml + (head0 + g) * NS * 2;
-    float mx = -INFINITY;
-    int live = 0;
-    for (int s0 = 0; s0 < NS; s0 += 32) {
-      const int s = s0 + lane;
-      const bool has = s < NS && ml[2 * s + 1] > 0.f;
-      if (has) mx = fmaxf(mx, ml[2 * s]);
-      live += __popc(__ballot_sync(0xffffffffu, has));
-    }
-    const float bs = merge_base(warp_max(mx));
-    float lsum = 0.f;
-    for (int s = lane; s < live; s += 32) {
-      const float w = exp2f(ml[2 * s] - bs);
-      wts[g * NS + s] = w;
-      lsum += w * ml[2 * s + 1];
-    }
-    lsum = warp_sum(lsum);
-    const float inv = lsum > 0.f ? 1.f / lsum : 0.f;
-    for (int s = lane; s < live; s += 32) wts[g * NS + s] *= inv;
-    if (g == 0 && lane == 0) live_s = live;
-  }
-  __syncthreads();
-  const int live = live_s;
-  for (int i = tid; i < G * Dv; i += THREADS) {
-    const int g = i / Dv, c = i % Dv;
-    const float* a = part_acc + (head0 + g) * NS * Dv + c;
-    const float* w = wts + g * NS;
-    float sum = 0.f;
-#pragma unroll 4
-    for (int s = 0; s < live; ++s) sum = fmaf(w[s], a[(size_t)s * Dv], sum);
-    o[(head0 + g) * Dv + c] = from_f<T>(sum);
-  }
-}
-
 template <typename T, int GB>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* length,
                    float* part_ml, float* part_acc, void* o, int B, int Smax, int Hq, int Hkv,
@@ -356,17 +280,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
   decode_split_kernel<T, GB><<<dim3(Hkv * ((G + GB - 1) / GB), B, NS), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), length,
       part_ml, part_acc, Smax, Hq, Hkv, D, Dv, L, split, vec, scale_log2);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto comb = decode_combine_kernel<T>;
-  const size_t cs = sizeof(float) * (size_t)G * NS;
-  if (cs > 48 * 1024) {
-    err = cudaFuncSetAttribute(comb, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cs);
-    if (err != cudaSuccess) return err;
-  }
-  comb<<<dim3(Hkv, B), THREADS, cs, stream>>>(part_ml, part_acc, static_cast<T*>(o), Hq, Hkv,
-                                              Dv, NS);
-  return cudaGetLastError();
+  return launch_combine<T>(part_ml, part_acc, o, B, Hq, Hkv, Dv, NS, stream);
 }
 
 template <typename T>

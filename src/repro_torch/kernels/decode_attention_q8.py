@@ -3,6 +3,11 @@
 Counterpart of ``repro/kernels/decode_attention.py`` (``decode_attention_q8_pallas``).
 ``decode_attention_q8`` launches the CUDA kernel for a CUDA tensor and takes
 the plain version (``ref.decode_attention_q8_ref``) only for a CPU tensor.
+
+The design is the bf16 decode's split-K: the kernel splits each slot's cache
+into ``SPLIT``-row pieces, one block each, and the bf16 decode's combine
+kernel merges the pieces' partial softmax states from an f32 scratch tensor
+allocated here.  One call counts as one ``decode_attention_q8`` launch.
 """
 from __future__ import annotations
 
@@ -14,13 +19,15 @@ import torch
 from . import _build
 from .ref import decode_attention_q8_ref
 
-__all__ = ["decode_attention_q8", "decode_attention_q8_cuda", "NAME"]
+__all__ = ["decode_attention_q8", "decode_attention_q8_cuda", "NAME", "SPLIT"]
 
 NAME = "decode_attention_q8"
+#: cache rows per block (the source note says why 64); read at each call
+SPLIT = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "decode_attention_q8_fwd": [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P],
+    "decode_attention_q8_fwd": [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P],
 }
 
 
@@ -60,11 +67,13 @@ def decode_attention_q8_cuda(
     lengths = lengths.to(torch.int32).expand(b).contiguous()
     lib = _build.load(NAME, _SIGNATURES)
     out = torch.empty((b, 1, hq, dv), dtype=q.dtype, device=q.device)
+    n_splits = -(-smax // SPLIT)
+    scratch = torch.empty(b * hq * n_splits * (2 + dv), dtype=torch.float32, device=q.device)
     _build.launch(
         NAME, lib.decode_attention_q8_fwd,
         q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], b, smax, hq, hkv, d, dv,
-        1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream,
+        lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(), _DTYPES[q.dtype], b, smax, hq,
+        hkv, d, dv, SPLIT, 1.0 / (d ** 0.5), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out
 

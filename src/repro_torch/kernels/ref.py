@@ -8,7 +8,9 @@ import torch
 
 __all__ = [
     "attention_ref", "decode_attention_ref", "decode_split_partials_ref",
-    "decode_split_combine_ref", "quantize_kv", "decode_attention_q8_ref", "ssd_scan_ref",
+    "decode_split_combine_ref", "quantize_kv", "decode_attention_q8_ref",
+    "decode_q8_split_partials_ref", "ssd_scan_ref", "ssd_chunk_states_ref",
+    "ssd_state_passing_ref", "ssd_chunk_scan_ref",
 ]
 
 _NEG = -1e30
@@ -80,6 +82,32 @@ def decode_attention_ref(
     return out.reshape(b, sq, hq, dv).to(q.dtype)
 
 
+def _split_partials(scores: torch.Tensor, v: torch.Tensor, length, split: int,
+                    v_scale: Optional[torch.Tensor] = None):
+    """scores (B, Hkv, G, Smax) f32 and v (B, Smax, Hkv, Dv) -> the pieces'
+    m, l (B, Hq, NS) and acc (B, Hq, NS, Dv); each probability is weighed by
+    v_scale (B, Smax, Hkv) in acc where given."""
+    b, hkv, g, smax = scores.shape
+    dv = v.shape[-1]
+    ns = -(-smax // split)
+    rows = ns * split - smax  # zero rows up to NS * split
+    lim = torch.as_tensor(length, device=scores.device).clamp(0, smax).expand(b)
+    valid = torch.arange(ns * split, device=scores.device)[None, :] < lim[:, None]
+    scores = torch.nn.functional.pad(scores, (0, rows))
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    scores = scores.reshape(b, hkv, g, ns, split)
+    m = scores.amax(-1)
+    p = torch.exp(scores - m.masked_fill(m == float("-inf"), 0.0)[..., None])
+    pv = p
+    if v_scale is not None:
+        vs = torch.nn.functional.pad(v_scale.float(), (0, 0, 0, rows)).transpose(1, 2)
+        pv = p * vs.reshape(b, hkv, 1, ns, split)
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, rows)).reshape(b, ns, split, hkv, dv)
+    acc = torch.einsum("bhgsk,bskhd->bhgsd", pv, vf)
+    hq = hkv * g
+    return m.reshape(b, hq, ns), p.sum(-1).reshape(b, hq, ns), acc.reshape(b, hq, ns, dv)
+
+
 def decode_split_partials_ref(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -94,22 +122,10 @@ def decode_split_partials_ref(
     exp(score - m), acc = sum of exp(score - m) v.  Returns m, l (B, Hq, NS)
     and acc (B, Hq, NS, Dv), in f32."""
     b, _, hq, d = q.shape
-    smax, hkv = k.shape[1], k.shape[2]
-    dv = v.shape[-1]
-    g = hq // hkv
-    ns = -(-smax // split)
-    pad = (0, 0, 0, 0, 0, ns * split - smax)  # zero rows up to NS * split
-    kf = torch.nn.functional.pad(k.float(), pad)
-    vf = torch.nn.functional.pad(v.float(), pad).reshape(b, ns, split, hkv, dv)
-    scores = torch.einsum("bhgd,bkhd->bhgk", q.reshape(b, hkv, g, d).float(), kf) / (d ** 0.5)
-    lim = torch.as_tensor(length, device=q.device).clamp(0, smax).expand(b)
-    valid = torch.arange(ns * split, device=q.device)[None, :] < lim[:, None]
-    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
-    scores = scores.reshape(b, hkv, g, ns, split)
-    m = scores.amax(-1)
-    p = torch.exp(scores - m.masked_fill(m == float("-inf"), 0.0)[..., None])
-    acc = torch.einsum("bhgsk,bskhd->bhgsd", p, vf)
-    return m.reshape(b, hq, ns), p.sum(-1).reshape(b, hq, ns), acc.reshape(b, hq, ns, dv)
+    hkv = k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k.float()) / (d ** 0.5)
+    return _split_partials(scores, v, length, split)
 
 
 def decode_split_combine_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
@@ -150,6 +166,29 @@ def decode_attention_q8_ref(
     return decode_attention_ref(q, k, v, length)
 
 
+def decode_q8_split_partials_ref(
+    q: torch.Tensor,  # (B,1,Hq,D)
+    k_q: torch.Tensor,  # (B,Smax,Hkv,D) int8
+    k_s: torch.Tensor,  # (B,Smax,Hkv) f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    length: Union[int, torch.Tensor],
+    split: int,
+):
+    """The split-K int8 decode's first pass, plainly, with the scales folded
+    in as the kernel folds them: score = (q . k_q) k_s / sqrt(D), and each
+    probability times v_s weighs v_q in the accumulator while l sums the
+    probabilities unscaled.  Pieces as in ``decode_split_partials_ref``;
+    returns m, l (B, Hq, NS) and acc (B, Hq, NS, Dv) in f32, for
+    ``decode_split_combine_ref``."""
+    b, _, hq, d = q.shape
+    hkv = k_q.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, d).float()
+    dots = torch.einsum("bhgd,bkhd->bhgk", qg, k_q.float())
+    scores = dots * k_s.float().transpose(1, 2)[:, :, None, :] / (d ** 0.5)
+    return _split_partials(scores, v_q, length, split, v_scale=v_s)
+
+
 def ssd_scan_ref(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -178,3 +217,66 @@ def ssd_scan_ref(
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
     y = torch.stack(ys, 1) if ys else xf.new_zeros((bt, 0, h, p))
     return y.to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# The SSD scan's three chunk-parallel passes, plainly (the tensor-core body's
+# structure).  A ragged last chunk is padded with dt = 0 and zero x, B, C: its
+# padded steps neither decay the state nor add to it.
+# ---------------------------------------------------------------------------
+def _ssd_chunks(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(Bt, S, ...) -> f32 (Bt, n_chunks, chunk, ...), zero-padded."""
+    s = t.shape[1]
+    nc = -(-s // chunk)
+    pad = [0, 0] * (t.dim() - 2) + [0, nc * chunk - s]
+    return torch.nn.functional.pad(t.float(), pad).reshape(t.shape[0], nc, chunk, *t.shape[2:])
+
+
+def _ssd_cum(dt: torch.Tensor, A: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Inclusive cumsum of A dt within each chunk: (Bt, n_chunks, chunk, H)."""
+    return torch.cumsum(_ssd_chunks(dt, chunk) * A.float(), dim=2)
+
+
+def ssd_chunk_states_ref(x, dt, A, B, chunk: int = 64):
+    """Pass 1: each chunk's own contribution to the state, from a zero
+    state: S_c = sum_u exp(cum_last - cum_u) dt_u x_u B_u^T, and the chunk's
+    total log-decay cum_last.  -> (S (Bt, n_chunks, H, P, N), cum_last
+    (Bt, n_chunks, H)), both f32."""
+    cum = _ssd_cum(dt, A, chunk)
+    cum_last = cum[:, :, -1]
+    tail = torch.exp(cum_last[:, :, None] - cum) * _ssd_chunks(dt, chunk)
+    states = torch.einsum("bcuh,bcuhp,bcun->bchpn", tail, _ssd_chunks(x, chunk),
+                          _ssd_chunks(B, chunk))
+    return states, cum_last
+
+
+def ssd_state_passing_ref(states, cum_last, initial_state=None):
+    """Pass 2: the state entering each chunk, h <- h exp(cum_last_c) + S_c
+    from the initial state (or zeros).  -> (h_enter (Bt, n_chunks, H, P, N),
+    final state (Bt, H, P, N)), both f32."""
+    bt, nc, h, p, n = states.shape
+    state = (torch.zeros((bt, h, p, n), dtype=torch.float32, device=states.device)
+             if initial_state is None else initial_state.float())
+    enters = []
+    for c in range(nc):
+        enters.append(state)
+        state = state * torch.exp(cum_last[:, c])[:, :, None, None] + states[:, c]
+    h_enter = torch.stack(enters, 1) if enters else states.new_zeros(states.shape)
+    return h_enter, state
+
+
+def ssd_chunk_scan_ref(x, dt, A, B, C, h_enter, chunk: int = 64):
+    """Pass 3: each chunk's output from its own inputs and the state entering
+    it: y_t = sum_{u <= t} (C_t . B_u) exp(cum_t - cum_u) dt_u x_u
+    + exp(cum_t) C_t h_enter^T.  -> y (Bt, S, H, P) in x's dtype."""
+    bt, s, h, p = x.shape
+    cum = _ssd_cum(dt, A, chunk)  # (Bt, nc, L, H)
+    Cc = _ssd_chunks(C, chunk)
+    cb = torch.einsum("bctn,bcun->bctu", Cc, _ssd_chunks(B, chunk))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (Bt, nc, t, u, H)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    seg = seg.masked_fill(~causal[None, None, :, :, None], float("-inf"))  # exp only for u <= t
+    w = cb[..., None] * torch.exp(seg) * _ssd_chunks(dt, chunk)[:, :, None, :, :]
+    y = torch.einsum("bctuh,bcuhp->bcthp", w, _ssd_chunks(x, chunk))
+    y = y + torch.einsum("bctn,bchpn->bcthp", Cc, h_enter) * torch.exp(cum)[..., None]
+    return y.reshape(bt, -1, h, p)[:, :s].to(x.dtype)

@@ -3,7 +3,16 @@
 Counterpart of ``repro/kernels/ssd_scan.py`` (``ssd_scan_pallas``).
 ``ssd_scan`` launches the CUDA kernel for a CUDA tensor and takes the plain
 version (``ref.ssd_scan_ref``) only for a CPU tensor.  The kernel picks its
-own time tile and takes any sequence length.
+own time tile (64 steps) and takes any sequence length.
+
+The source has two bodies and ``body`` picks one by shape, before the
+launch: the tensor-core body (three chunk-parallel launches, plainly
+``ref.ssd_chunk_states_ref``, ``ref.ssd_state_passing_ref`` and
+``ref.ssd_chunk_scan_ref``; its f32 scratch is allocated here) for bf16 with
+P and N multiples of 16, P <= 256 and 16-byte aligned rows, the CUDA-core
+body for everything else (f32, which the tensor cores cannot keep to 5e-5,
+and other bf16 shapes).  Every call counts under ``ssd_scan`` and under its
+body's own counter, ``ssd_scan.tc`` or ``ssd_scan.simt``.
 """
 from __future__ import annotations
 
@@ -15,15 +24,33 @@ import torch
 from . import _build
 from .ref import ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_scan_cuda", "NAME"]
+__all__ = ["ssd_scan", "ssd_scan_cuda", "body", "NAME", "CHUNK"]
 
 NAME = "ssd_scan"
+#: the kernel's time tile (``L`` in csrc/ssd_scan.cu); sizes the tensor-core body's scratch
+CHUNK = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "ssd_scan_fwd": [_P] * 8 + [_I] * 6 + [_L] * 6 + [_P],
+    "ssd_scan_tc_fwd": [_P] * 9 + [_I] * 5 + [_L] * 6 + [_P],
 }
 _MAX_N = 128
+_TC_MAX_P = 256  # x and h_enter tiles of one head fit in shared memory
+
+
+def body(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> str:
+    """``"tc"`` (tensor cores) for bf16 with P % 16 == 0, P <= 256,
+    N % 16 == 0, and x, B, C whose base pointers and batch and sequence
+    strides are 16-byte aligned; ``"simt"`` (CUDA cores) for everything
+    else."""
+    p, n = x.shape[-1], B.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0
+                  for t in (x, B, C))
+    if (x.dtype == torch.bfloat16 and p % 16 == 0 and p <= _TC_MAX_P and n % 16 == 0
+            and aligned):
+        return "tc"
+    return "simt"
 
 
 def ssd_scan_cuda(
@@ -52,9 +79,10 @@ def ssd_scan_cuda(
                          f"A{tuple(A.shape)} B{tuple(B.shape)} C{tuple(C.shape)}")
     if not 0 < n <= _MAX_N:
         raise ValueError(f"ssd_scan_cuda: state size N={n} outside (0, {_MAX_N}]")
-    if x.stride(3) != 1 or x.stride(2) != p:
+    # an empty sequence reads nothing, whatever strides it carries
+    if s > 0 and (x.stride(3) != 1 or x.stride(2) != p):
         raise ValueError("ssd_scan_cuda: x needs contiguous (H, P) rows")
-    if B.stride(2) != 1 or C.stride(2) != 1:
+    if s > 0 and (B.stride(2) != 1 or C.stride(2) != 1):
         raise ValueError("ssd_scan_cuda: B and C need contiguous N")
     if not (dt.is_contiguous() and A.is_contiguous()):
         raise ValueError("ssd_scan_cuda: dt and A must be contiguous")
@@ -67,14 +95,22 @@ def ssd_scan_cuda(
     lib = _build.load(NAME, _SIGNATURES)
     y = torch.empty((bt, s, h, p), dtype=x.dtype, device=x.device)
     h_t = torch.empty((bt, h, p, n), dtype=torch.float32, device=x.device)
-    _build.launch(
-        NAME, lib.ssd_scan_fwd,
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        initial_state.data_ptr() if initial_state is not None else None,
-        y.data_ptr(), h_t.data_ptr(), _DTYPES[x.dtype], bt, s, h, p, n,
-        x.stride(0), x.stride(1), B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    ptrs = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            initial_state.data_ptr() if initial_state is not None else None,
+            y.data_ptr(), h_t.data_ptr())
+    shape = (bt, s, h, p, n, x.stride(0), x.stride(1), B.stride(0), B.stride(1), C.stride(0),
+             C.stride(1), torch.cuda.current_stream(x.device).cuda_stream)
+    if body(x, B, C) == "tc":
+        # the chunks' own states, then the states entering them, and each
+        # chunk's total log-decay
+        n_chunks = -(-s // CHUNK)
+        scratch = torch.empty(bt * n_chunks * h * (p * n + 1), dtype=torch.float32,
+                              device=x.device)
+        _build.launch((NAME, NAME + ".tc"), lib.ssd_scan_tc_fwd, *ptrs, scratch.data_ptr(),
+                      *shape)
+    else:
+        _build.launch((NAME, NAME + ".simt"), lib.ssd_scan_fwd, *ptrs, _DTYPES[x.dtype],
+                      *shape)
     return y, h_t
 
 

@@ -272,6 +272,25 @@ def test_flash_body_routing_misaligned_view_takes_cuda_cores():
     assert fa.body(view, view, view) == "simt"
 
 
+def test_build_hashes_included_headers(tmp_path, monkeypatch):
+    """A library's name changes with the source and with every csrc/ header
+    it includes (transitively), so an edited header is rebuilt."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda_runtime.h>\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build._sources(tmp_path / "k.cu")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = _build._lib_path("k")
+    assert first == _build._lib_path("k") and first.name.startswith("libk-")
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = _build._lib_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k2;\n')
+    assert _build._lib_path("k") not in (first, second)
+
+
 def test_ops_on_cpu_dispatch_to_plain_versions_without_launches():
     ops.reset_launch_counts()
     (tq, tk, tv), _ = _inputs(7, "float32", (1, 64, 4, 32), (1, 64, 2, 32), (1, 64, 2, 32))

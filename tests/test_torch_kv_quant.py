@@ -132,6 +132,58 @@ def test_decode_attention_q8_ref_ragged(lens):
     np.testing.assert_allclose(_np(got), _np(pallas), **TOL["float32"])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split", [1, 7, 64, 100])
+def test_decode_q8_split_ref_matches_q8_ref_and_pallas(dtype, split):
+    """The split-K int8 decode, done plainly with the scales folded in as the
+    kernel folds them (per-split partials, then the bf16 decode's combine),
+    against the one-pass plain version and the Pallas kernel, at lengths 0,
+    1, split - 1, split, split + 1, Smax and past Smax in one batch."""
+    import jax.numpy as jnp
+
+    from repro.kernels.decode_attention import decode_attention_q8_pallas
+
+    b, smax, hq, hkv, d = 7, 256, 6, 2, 64
+    lens = [0, 1, max(split - 1, 0), split, split + 1, smax, smax + 9]
+    q, k, v = _qkv(12, b, smax, hq, hkv, d)
+    tq = torch.from_numpy(q).to(TORCH_DTYPES[dtype])
+    tk, tks = tref.quantize_kv(torch.from_numpy(k))
+    tv, tvs = tref.quantize_kv(torch.from_numpy(v))
+    length = torch.tensor(lens, dtype=torch.int32)
+    m, l, acc = tref.decode_q8_split_partials_ref(tq, tk, tks, tv, tvs, length, split)
+    n_splits = -(-smax // split)
+    assert m.shape == l.shape == (b, hq, n_splits) and acc.shape == (b, hq, n_splits, d)
+    got = tref.decode_split_combine_ref(m, l, acc, tq.dtype)
+    assert got.dtype == tq.dtype and got.shape == (b, 1, hq, d)
+    assert not got[0].float().any()  # length 0: zeros
+    np.testing.assert_allclose(
+        _np(got), _np(tref.decode_attention_q8_ref(tq, tk, tks, tv, tvs, length)), **TOL[dtype])
+    jargs = [jnp.asarray(a.numpy()) for a in (tk, tks, tv, tvs)]
+    pallas = decode_attention_q8_pallas(jnp.asarray(q).astype(getattr(jnp, dtype)), *jargs,
+                                        length=jnp.asarray(lens, jnp.int32), block_k=64,
+                                        interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), **TOL[dtype])
+
+
+@pytest.mark.parametrize("split", [1, 64, 100])
+def test_decode_q8_split_partials_empty_past_the_length(split):
+    """A piece that starts at or past the (clamped) length is empty: m = -inf,
+    l = 0, acc = 0; a live piece's l counts its rows' unscaled
+    probabilities (>= 1, its largest is exp(0))."""
+    b, smax, hq, hkv, d = 4, 256, 4, 2, 32
+    lens = [0, split, 200, 1000]
+    q, k, v = _qkv(13, b, smax, hq, hkv, d)
+    tk, tks = tref.quantize_kv(torch.from_numpy(k))
+    tv, tvs = tref.quantize_kv(torch.from_numpy(v))
+    m, l, acc = tref.decode_q8_split_partials_ref(torch.from_numpy(q), tk, tks, tv, tvs,
+                                                  torch.tensor(lens), split)
+    for i, n in enumerate(lens):
+        live = -(-min(n, smax) // split)
+        assert torch.isinf(m[i, :, live:]).all() and (m[i, :, live:] < 0).all()
+        assert not l[i, :, live:].any() and not acc[i, :, live:].any()
+        assert torch.isfinite(m[i, :, :live]).all() and (l[i, :, :live] >= 1).all()
+
+
 def test_decode_attention_q8_ops_on_cpu_is_the_plain_version():
     ops.reset_launch_counts()
     q, k, v = (torch.from_numpy(a) for a in _qkv(10, 2, 64, 4, 2, 32))
@@ -278,3 +330,47 @@ def test_decode_attention_q8_cuda_matches_plain(cuda, dtype, b, smax, hq, hkv, d
     assert ops.launch_counts()["decode_attention_q8"] == before + 1
     want = tref.decode_attention_q8_ref(q, kq, ks, vq, vs, length=length)
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("split", [16, 64, 128])
+@pytest.mark.parametrize("hq,hkv", [(9, 3), (32, 32), (16, 2)])
+def test_decode_attention_q8_cuda_split_edges(cuda, monkeypatch, dtype, split, hq, hkv):
+    """Lengths 0, 1, split - 1, split, split + 1, Smax and past Smax in one
+    batch, at several splits, against the plain version and the plain
+    split-K int8 decode; one call is one launch."""
+    from repro_torch.kernels import decode_attention_q8 as q8
+
+    monkeypatch.setattr(q8, "SPLIT", split)
+    b, smax, d = 8, 2048, 64
+    lens = [0, 1, split - 1, split, split + 1, smax, smax + 952, 700]
+    q, k, v = (torch.from_numpy(a) for a in _qkv(14, b, smax, hq, hkv, d))
+    q = q.to(TORCH_DTYPES[dtype]).to(cuda)
+    kq, ks = (t.to(cuda) for t in tref.quantize_kv(k))
+    vq, vs = (t.to(cuda) for t in tref.quantize_kv(v))
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = ops.launch_counts().get("decode_attention_q8", 0)
+    got = q8.decode_attention_q8_cuda(q, kq, ks, vq, vs, length)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention_q8"] == before + 1
+    assert not got[0].float().any()
+    want = tref.decode_attention_q8_ref(q, kq, ks, vq, vs, length)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL[dtype])
+    split_ref = tref.decode_split_combine_ref(
+        *tref.decode_q8_split_partials_ref(q, kq, ks, vq, vs, length, split), q.dtype)
+    np.testing.assert_allclose(_np(got.cpu()), _np(split_ref.cpu()), **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_decode_attention_q8_cuda_scalar_length_and_odd_head_dim(cuda):
+    """A scalar length is broadcast; D = Dv = 40 takes the element-wise loads."""
+    for d, length in ((64, 300), (40, 77)):
+        q, k, v = (torch.from_numpy(a) for a in _qkv(15, 2, 512, 9, 3, d))
+        q = q.to(torch.bfloat16).to(cuda)
+        kq, ks = (t.to(cuda) for t in tref.quantize_kv(k))
+        vq, vs = (t.to(cuda) for t in tref.quantize_kv(v))
+        got = ops.decode_attention_q8(q, kq, ks, vq, vs, length=length)
+        torch.cuda.synchronize()
+        want = tref.decode_attention_q8_ref(q, kq, ks, vq, vs, length=length)
+        np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **TOL["bfloat16"])

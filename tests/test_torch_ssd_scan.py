@@ -129,6 +129,129 @@ def test_ssd_scan_ref_initial_state_chain():
     np.testing.assert_allclose(_np(h2), _np(ph2), **_tol("float32"))
 
 
+def _three_passes(x, dt, A, Bm, Cm, h0=None):
+    """The tensor-core body's structure, plainly: chunk states, state
+    passing, chunk scan."""
+    states, cum_last = tref.ssd_chunk_states_ref(x, dt, A, Bm, chunk=64)
+    h_enter, hT = tref.ssd_state_passing_ref(states, cum_last, h0)
+    return tref.ssd_chunk_scan_ref(x, dt, A, Bm, Cm, h_enter, chunk=64), hT
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize(
+    "b,s,h,p,n",
+    [
+        (1, 128, 2, 16, 8),
+        (2, 256, 4, 32, 16),
+        (1, 64, 8, 8, 64),  # single chunk
+    ],
+)
+def test_ssd_three_passes_match_ref_and_pallas(dtype, with_state, b, s, h, p, n):
+    """The three passes composed == the sequential plain version and the
+    Pallas kernel at its 64-step chunk (S % 64 == 0)."""
+    import jax.numpy as jnp
+
+    from repro.kernels.ssd_scan import ssd_scan_pallas
+
+    arrs = _ssd_inputs(10, b, s, h, p, n)
+    h0 = (np.random.default_rng(11).standard_normal((b, h, p, n)).astype(np.float32)
+          if with_state else None)
+    th0 = torch.from_numpy(h0) if with_state else None
+    tx = _torch(arrs, dtype)
+    y, hT = _three_passes(*tx, th0)
+    assert y.dtype == TORCH_DTYPES[dtype] and y.shape == (b, s, h, p)
+    assert hT.dtype == torch.float32 and hT.shape == (b, h, p, n)
+    wy, wh = tref.ssd_scan_ref(*tx, initial_state=th0)
+    np.testing.assert_allclose(_np(y), _np(wy), **_tol(dtype))
+    np.testing.assert_allclose(_np(hT), _np(wh), **_tol(dtype))
+    py, ph = ssd_scan_pallas(*_jax(arrs, dtype), chunk=64,
+                             initial_state=jnp.asarray(h0) if with_state else None,
+                             interpret=True)
+    np.testing.assert_allclose(_np(y), _np(py), **_tol(dtype))
+    np.testing.assert_allclose(_np(hT), _np(ph), **_tol(dtype))
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("s", [1, 33, 100])
+def test_ssd_three_passes_ragged_length(with_state, s):
+    """S not a multiple of the chunk: the last chunk is short (padded with
+    dt = 0 in the plain passes); against the reference oracle."""
+    import jax.numpy as jnp
+
+    from repro.kernels import ref as jref
+
+    b, h, p, n = 2, 3, 16, 8
+    arrs = _ssd_inputs(12, b, s, h, p, n)
+    h0 = (np.random.default_rng(13).standard_normal((b, h, p, n)).astype(np.float32)
+          if with_state else None)
+    y, hT = _three_passes(*_torch(arrs, "float32"),
+                          torch.from_numpy(h0) if with_state else None)
+    want_y, want_h = jref.ssd_scan_ref(*_jax(arrs, "float32"),
+                                       initial_state=jnp.asarray(h0) if with_state else None)
+    np.testing.assert_allclose(_np(y), _np(want_y), **_tol("float32"))
+    np.testing.assert_allclose(_np(hT), _np(want_h), **_tol("float32"))
+
+
+def test_ssd_state_passing_chunk_boundaries():
+    """Pass 2 hands each chunk the state the sequential scan holds at the
+    chunk's start: S = 0 gives the initial state back."""
+    b, s, h, p, n = 1, 192, 2, 8, 8
+    x, dt, A, Bm, Cm = _torch(_ssd_inputs(14, b, s, h, p, n), "float32")
+    h0 = torch.from_numpy(np.random.default_rng(15).standard_normal((b, h, p, n))
+                          .astype(np.float32))
+    states, cum_last = tref.ssd_chunk_states_ref(x, dt, A, Bm)
+    h_enter, hT = tref.ssd_state_passing_ref(states, cum_last, h0)
+    assert h_enter.shape == (b, 3, h, p, n) and torch.equal(h_enter[:, 0], h0)
+    for c in (1, 2):
+        _, want = tref.ssd_scan_ref(x[:, :64 * c], dt[:, :64 * c], A, Bm[:, :64 * c],
+                                    Cm[:, :64 * c], initial_state=h0)
+        np.testing.assert_allclose(_np(h_enter[:, c]), _np(want), **_tol("float32"))
+    empty, e_cum = tref.ssd_chunk_states_ref(x[:, :0], dt[:, :0], A, Bm[:, :0])
+    assert empty.shape == (b, 0, h, p, n) and e_cum.shape == (b, 0, h)
+    _, h_same = tref.ssd_state_passing_ref(empty, e_cum, h0)
+    assert torch.equal(h_same, h0)
+
+
+@pytest.mark.parametrize(
+    "dtype,p,n,body",
+    [
+        ("bfloat16", 128, 64, "tc"),  # zamba2-1.2b
+        ("bfloat16", 16, 16, "tc"),
+        ("bfloat16", 256, 128, "tc"),
+        ("bfloat16", 272, 64, "simt"),  # P above 256: a head's tiles do not fit
+        ("bfloat16", 40, 16, "simt"),  # P not a multiple of 16
+        ("bfloat16", 32, 8, "simt"),  # N not a multiple of 16
+        ("float32", 128, 64, "simt"),  # f32 keeps 5e-5 only on the CUDA cores
+    ],
+)
+def test_ssd_body_routing_by_shape(dtype, p, n, body):
+    from repro_torch.kernels import ssd_scan as ssd
+
+    x, _, _, Bm, Cm = _torch(_ssd_inputs(16, 1, 4, 2, p, n), dtype)
+    assert ssd.body(x, Bm, Cm) == body
+
+
+def test_ssd_body_routing_by_alignment():
+    """mamba2_block's views of the convolution output (row stride
+    d_inner + 2N, B and C at offsets d_inner and d_inner + N) keep the
+    tensor cores; a view 2 bytes off a 16-byte boundary, or a sequence
+    stride that is not a multiple of 8 elements, takes the CUDA cores."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    b, s, h, p, n = 1, 5, 4, 32, 16
+    xbc = torch.zeros((b, s, h * p + 2 * n), dtype=torch.bfloat16)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    Bm, Cm = xbc[..., h * p: h * p + n], xbc[..., h * p + n:]
+    assert not x.is_contiguous() and ssd.body(x, Bm, Cm) == "tc"
+    off = torch.zeros((b * s * (h * p + 2 * n) + 1,), dtype=torch.bfloat16)[1:]
+    off = off.view(b, s, h * p + 2 * n)
+    assert off.data_ptr() % 16 == 2
+    assert ssd.body(off[..., :h * p].reshape(b, s, h, p), Bm, Cm) == "simt"
+    wide = torch.zeros((b, s, h * p + 2 * n + 4), dtype=torch.bfloat16)  # stride % 8 == 4
+    assert ssd.body(wide[..., :h * p].reshape(b, s, h, p), Bm, Cm) == "simt"
+
+
 def test_ssd_scan_ops_on_cpu_is_the_plain_version():
     ops.reset_launch_counts()
     x, dt, A, Bm, Cm = _torch(_ssd_inputs(4, 1, 40, 2, 8, 8), "float32")
@@ -221,6 +344,8 @@ def test_ssd_scan_cuda_matches_plain(cuda, dtype, b, s, h, p, n, with_state):
 def test_ssd_scan_cuda_reads_strided_slices(cuda):
     """x, B, C as slices of one (B, S, d_inner + 2N) tensor, as mamba2_block
     hands them over: read in place, same result as contiguous copies."""
+    from repro_torch.kernels import ssd_scan as ssd
+
     b, s, h, p, n = 2, 150, 4, 32, 16
     rng = np.random.default_rng(8)
     xbc = torch.from_numpy(rng.standard_normal((b, s, h * p + 2 * n)).astype(np.float32))
@@ -229,9 +354,57 @@ def test_ssd_scan_cuda_reads_strided_slices(cuda):
     x = xbc[..., :h * p].reshape(b, s, h, p)
     Bm, Cm = xbc[..., h * p: h * p + n], xbc[..., h * p + n:]
     assert not x.is_contiguous()
+    assert ssd.body(x, Bm, Cm) == "tc"  # the strided views keep the tensor cores
+    before = ops.launch_counts().get("ssd_scan.tc", 0)
     y, hT = ops.ssd_scan(x, dt, A, Bm, Cm)
     wy, wh = ops.ssd_scan(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous())
     torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan.tc"] == before + 2
     assert torch.equal(y, wy) and torch.equal(hT, wh)
     with pytest.raises(ValueError, match="contiguous"):
         ops.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm, Cm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 700])
+def test_ssd_scan_cuda_tc_body(cuda, s):
+    """The tensor-core body at zamba2-1.2b's widths, around the chunk edges,
+    with an initial state; one call counts once under ssd_scan and ssd_scan.tc."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    b, h, p, n = 1, 32, 128, 64
+    x, dt, A, Bm, Cm = (t.to(cuda) for t in _torch(_ssd_inputs(17, b, s, h, p, n), "bfloat16"))
+    h0 = torch.from_numpy(np.random.default_rng(18).standard_normal((b, h, p, n))
+                          .astype(np.float32)).to(cuda)
+    assert ssd.body(x, Bm, Cm) == "tc"
+    counts = ops.launch_counts()
+    before = (counts.get("ssd_scan", 0), counts.get("ssd_scan.tc", 0))
+    y, hT = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, h0)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["ssd_scan"], counts["ssd_scan.tc"]) == (before[0] + 1, before[1] + 1)
+    wy, wh = tref.ssd_scan_ref(x, dt, A, Bm, Cm, initial_state=h0)
+    np.testing.assert_allclose(_np(y.cpu()), _np(wy.cpu()), **_tol("bfloat16"))
+    np.testing.assert_allclose(_np(hT.cpu()), _np(wh.cpu()), **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_cuda_tc_batches_and_wide_state(cuda):
+    """Batch > 1, several heads per block (long S), N = 128 and P = 256, and
+    S = 0 (the final state is the initial state)."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    # (2, 4200, 8, ...): 66 chunks, so four heads share a block
+    for b, s, h, p, n in ((3, 300, 4, 64, 32), (2, 4200, 8, 64, 32), (1, 700, 2, 256, 128),
+                          (2, 0, 2, 32, 16)):
+        x, dt, A, Bm, Cm = (t.to(cuda) for t in _torch(_ssd_inputs(19, b, s, h, p, n),
+                                                        "bfloat16"))
+        h0 = torch.from_numpy(np.random.default_rng(20).standard_normal((b, h, p, n))
+                              .astype(np.float32)).to(cuda)
+        assert ssd.body(x, Bm, Cm) == "tc"
+        y, hT = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, h0)
+        torch.cuda.synchronize()
+        wy, wh = tref.ssd_scan_ref(x, dt, A, Bm, Cm, initial_state=h0)
+        assert y.shape == (b, s, h, p)
+        np.testing.assert_allclose(_np(y.cpu()), _np(wy.cpu()), **_tol("bfloat16"))
+        np.testing.assert_allclose(_np(hT.cpu()), _np(wh.cpu()), **_tol("bfloat16"))
