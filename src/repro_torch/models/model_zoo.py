@@ -17,7 +17,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
-from .ssm import CONV_K, mamba_dims
+from .ssm import CONV_K, mamba_dims, mlstm_dims, slstm_ff_width
 from .transformer import Model, check_supported, torch_dtype
 
 Params = Dict[str, Any]
@@ -26,13 +26,15 @@ __all__ = ["Leaf", "ModelBundle", "bundle", "param_specs"]
 
 
 class Leaf(NamedTuple):
-    """One parameter: its shape, initializer ("normal" with a scale, "ones"
-    or "zeros") and dtype (None: the config's dtype)."""
+    """One parameter: its shape, initializer ("normal" with a scale, "ones",
+    "zeros", or "fill" with ``values`` along the last axis) and dtype (None:
+    the config's dtype)."""
 
     shape: Tuple[int, ...]
     init: str
     scale: Optional[float] = None
     dtype: Optional[torch.dtype] = None
+    values: Optional[Tuple[float, ...]] = None
 
 
 def _dense(d_in: int, d_out: int, lead=()) -> Leaf:
@@ -85,6 +87,42 @@ def _mamba2_block(cfg: ArchConfig, lead=()) -> Params:
     }
 
 
+def _mlstm_block(cfg: ArchConfig, lead=()) -> Params:
+    d = cfg.d_model
+    h, dh = mlstm_dims(cfg)
+    return {
+        "ln1": _norm(d, cfg.norm, lead),
+        "mixer": {
+            "w_up": _dense(d, 2 * d, lead),
+            "w_z": _dense(d, 2 * d, lead),
+            "wq": _dense(2 * d, h * dh, lead),
+            "wk": _dense(2 * d, h * dh, lead),
+            "wv": _dense(2 * d, h * dh, lead),
+            "w_if": Leaf(lead + (2 * d, 2 * h), "normal", 0.02),
+            # input gates start at 0, forget gates at 3 (sigmoid ~0.95)
+            "if_bias": Leaf(lead + (2 * h,), "fill", dtype=torch.float32,
+                            values=(0.0,) * h + (3.0,) * h),
+            "norm": _norm(2 * d, "rmsnorm", lead),
+            "w_down": _dense(2 * d, d, lead),
+        },
+    }
+
+
+def _slstm_block(cfg: ArchConfig, lead=()) -> Params:
+    d, f = cfg.d_model, slstm_ff_width(cfg)
+    return {
+        "ln1": _norm(d, cfg.norm, lead),
+        "mixer": {
+            "w_gates": _dense(d, 4 * d, lead),  # i, f, z, o
+            "r_gates": _dense(d, 4 * d, lead),  # recurrent
+            "g_bias": Leaf(lead + (4 * d,), "zeros", dtype=torch.float32),
+            "norm": _norm(d, "rmsnorm", lead),
+            "w_ff": {"w_out": _dense(f, d, lead), "w_gate": _dense(d, f, lead),
+                     "w_up": _dense(d, f, lead)},
+        },
+    }
+
+
 def param_specs(cfg: ArchConfig) -> Params:
     """The parameter tree with a ``Leaf`` per parameter; mirrors
     ``repro.models.transformer.Model.init`` (groups split as ``Model._groups``)."""
@@ -94,7 +132,8 @@ def param_specs(cfg: ArchConfig) -> Params:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = _dense(cfg.d_model, cfg.vocab_size)
-    block = {"attn": _attn_block, "mamba2": _mamba2_block}
+    block = {"attn": _attn_block, "mamba2": _mamba2_block, "mlstm": _mlstm_block,
+             "slstm": _slstm_block}
     specs["groups"] = [block[kind](cfg, (n,)) for kind, n in Model(cfg)._groups()]
     if cfg.shared_attn_every:
         specs["shared_attn"] = _attn_block(cfg)
@@ -123,6 +162,9 @@ class ModelBundle:
                 return torch.ones(leaf.shape, dtype=dt, device=dev)
             if leaf.init == "zeros":
                 return torch.zeros(leaf.shape, dtype=dt, device=dev)
+            if leaf.init == "fill":
+                vals = torch.tensor(leaf.values, dtype=dt, device=dev)
+                return vals.expand(leaf.shape).clone()
             w = torch.randn(leaf.shape, generator=generator, device=generator.device)
             return (w * leaf.scale).to(device=dev, dtype=dt)
 

@@ -1,5 +1,6 @@
-"""Decoder-only LM over dense GQA attention and Mamba-2 blocks, with Zamba2's
-weight-shared attention block: the trunk the served replica runs.
+"""Decoder-only LM over dense GQA attention, Mamba-2 and xLSTM (mLSTM /
+sLSTM) blocks, with Zamba2's weight-shared attention block: the trunk the
+served replica runs.
 Counterpart of ``repro/models/transformer.py``.
 
 Layers of one kind are stacked with a leading L dimension, exactly as in the
@@ -34,14 +35,15 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """The port covers dense GQA decoders and Mamba-2 hybrids with a shared
-    attention block; everything else is still only in the reference package."""
+    """The port covers dense GQA decoders, Mamba-2 hybrids with a shared
+    attention block and xLSTM; everything else is still only in the
+    reference package."""
     missing = []
     if cfg.attention != "gqa":
         missing.append(f"attention={cfg.attention}")
     if cfg.n_experts:
         missing.append("MoE")
-    other = sorted(set(cfg.block_pattern) - {"attn", "mamba2"})
+    other = sorted(set(cfg.block_pattern) - {"attn", "mamba2", "mlstm", "slstm"})
     if other:
         missing.append(f"{'/'.join(other)} blocks")
     if cfg.enc_dec:
@@ -76,6 +78,10 @@ def _block_cache(kind: str, cfg: ArchConfig, batch: int, max_len: int, dtype, de
                  ragged: bool):
     if kind == "attn":
         return {"attn": _attn_cache(cfg, batch, max_len, dtype, device, ragged)}
+    if kind == "mlstm":
+        return {"mixer": ssm.init_mlstm_state(cfg, batch, device)}
+    if kind == "slstm":
+        return {"mixer": ssm.init_slstm_state(cfg, batch, device)}
     return {"mixer": ssm.init_mamba_state(cfg, batch, dtype, device)}
 
 
@@ -94,9 +100,10 @@ def _layer(tree, i: int):
 
 def _apply_block(p: Params, x: torch.Tensor, kind: str, cfg: ArchConfig, positions, cache):
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
-    if kind == "mamba2":
-        y, _ = ssm.mamba2_block(p["mixer"], h, cfg,
-                                cache["mixer"] if cache is not None else None)
+    if kind != "attn":  # recurrent mixers
+        fn = {"mamba2": ssm.mamba2_block, "mlstm": ssm.mlstm_block,
+              "slstm": ssm.slstm_block}[kind]
+        y, _ = fn(p["mixer"], h, cfg, cache["mixer"] if cache is not None else None)
         return x + y
     x = x + layers.attention(p["attn"], h, cfg, positions,
                              cache["attn"] if cache is not None else None)

@@ -187,7 +187,7 @@ def test_other_dense_archs_match_reference(name):
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), **TOL)
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "deepseek-v3-671b", "xlstm-125m",
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "deepseek-v3-671b",
                                   "seamless-m4t-large-v2", "pixtral-12b"])
 def test_unported_families_raise(name):
     with pytest.raises(NotImplementedError):
