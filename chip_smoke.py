@@ -15,7 +15,10 @@ Phases, each of which passes or raises (any failure exits non-zero):
      SSD case through the body its shape selects (tensor cores for bf16 with
      head dims, or P and N, that are multiples of 16), both decode kernels
      at lengths around their split, the SSD scan around its 64-step chunk
-     and on strided views of one tensor as mamba2_block hands them over;
+     and on strided views of one tensor as mamba2_block hands them over, and
+     the bf16 decode through the paged KV cache (serving.kvcache: pages
+     scattered by a shuffled BlockAllocator, paged_decode_attention against
+     the plain decode on the contiguous cache);
   4. three engine runs at full width through repro_torch.launch.serve's
      engine path, each of 16 seeded requests with bf16 seeded random weights:
      smollm-135m, zamba2-1.2b (Mamba-2 + shared attention), and smollm-135m
@@ -42,12 +45,24 @@ Phases, each of which passes or raises (any failure exits non-zero):
      of a second pass of the same 30 calls (``device_ms_source``).  The two
      attention kernels serve smollm-135m and zamba2-1.2b at different head
      layouts; their entries carry the zamba2 shapes' numbers under "zamba2".
-     Each entry's ``launches_by_path`` also counts phase 7's launches;
-  7. the placement-integrated cluster on the card (``phase_cluster``):
-     smollm-135m "chat" and xlstm-125m "draft" replicas sized onto H100 80GB
-     MIG slices, placed, served through full-width engines, retired,
-     compacted with a live replica's KV cache handed off, reconfigured and
-     pumped to completion, printed as a ``{"cluster": ...}`` JSON line.
+     Each entry's ``launches_by_path`` also counts phase 8's and phase 7's
+     launches, and the kernels phase 8 calibrates carry its whole-device f32
+     shape's numbers under "calibration" (bound against the f32 peak);
+  8. calibration (``phase_calibration``, run before phase 7): the H100 80GB's
+     MIG ladder swept by repro_torch.obs.profile at the ``full`` preset with
+     emulated slices (MIG is off on the card), launch counts zeroed just
+     before and read just after (each of flash, decode and the SSD scan
+     6 profiles x 13 calls, all f32 and so through the CUDA-core flash and
+     SSD bodies; no int8 decode), each kernel at the preset's whole-device
+     shape against its plain version, the artifact's structure, FLOPs and
+     bytes checked and loaded into a PerfModel whose rates must be monotone
+     over the ladder; printed as a ``{"calibration": ...}`` JSON line;
+  7. the placement-integrated cluster on the card (``phase_cluster``),
+     planning with phase 8's calibrated PerfModel: smollm-135m "chat" and
+     xlstm-125m "draft" replicas sized onto H100 80GB MIG slices, placed,
+     served through full-width engines, retired, compacted with a live
+     replica's KV cache handed off, reconfigured and pumped to completion,
+     printed as a ``{"cluster": ...}`` JSON line.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing any
 result.
@@ -58,6 +73,7 @@ import dataclasses
 import json
 import math
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -66,9 +82,11 @@ import time
 
 import numpy as np
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 FLOP/s
+#: published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16 FLOP/s,
+#: float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 KERNELS = ["flash_attention", "decode_attention", "decode_attention_q8", "ssd_scan"]
 #: (atol, rtol) of a kernel against its plain version
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-5)}
@@ -314,6 +332,7 @@ def phase_kernels(torch, ops, ref, fa, dec, q8, ssd):
     q, k, v = rn((2, 1, 9, 64), torch.bfloat16), rn((2, 512, 3, 64), torch.bfloat16), rn((2, 512, 3, 64), torch.bfloat16)
     check_close("decode_attention scalar length 300 bfloat16", dec.decode_attention_cuda(q, k, v, 300),
                 ref.decode_attention_ref(q, k, v, 300), "bfloat16")
+    check_paged_decode(torch, ops, ref, rn)
 
     q8_cases = [
         ("smollm 8 slots, Smax=2048", dn, 8, 2048, 9, 3, 64, [1, 2048, 3000, 5, 700, 64, 65, 128])
@@ -373,6 +392,48 @@ def phase_kernels(torch, ops, ref, fa, dec, q8, ssd):
             wy, wh = ref.ssd_scan_ref(x, dt, A, Bm, Cm)
             check_close(f"ssd_scan y {label} ({want_body}, == contiguous)", y, wy, dn, SSD_TOL)
             check_close(f"ssd_scan hT {label} ({want_body}, == contiguous)", hT, wh, dn, SSD_TOL)
+
+
+def shuffled_allocator(BlockAllocator, n_blocks: int, seed: int):
+    """An allocator that hands out its blocks in a seeded random order: each
+    block taken alone, then all freed in a shuffled order."""
+    alloc = BlockAllocator(n_blocks)
+    for i in range(n_blocks):
+        alloc.allocate(-1 - i)
+    for i in random.Random(seed).sample(range(n_blocks), n_blocks):
+        alloc.free(-1 - i)
+    return alloc
+
+
+def check_paged_decode(torch, ops, ref, rn):
+    """smollm-135m's decode shape (8 slots, 9/3 heads, D 64, bf16) through
+    the paged KV cache: 16-token pages handed out by a shuffled allocator,
+    written with append_batch, gathered and decoded by the split-K kernel
+    (one decode_attention launch), against the plain decode on the
+    contiguous cache."""
+    from repro_torch.serving.kvcache import BlockAllocator, PagedKVCache, paged_decode_attention
+
+    lens, bs, smax, hq, hkv, d = [1, 16, 17, 2048, 700, 64, 65, 128], 16, 2048, 9, 3, 64
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    alloc = shuffled_allocator(BlockAllocator, n_blocks, seed=0)
+    cache = PagedKVCache.create(n_blocks, bs, hkv, d, torch.bfloat16, device="cuda")
+    k, v = rn((8, smax, hkv, d), torch.bfloat16), rn((8, smax, hkv, d), torch.bfloat16)
+    tables = torch.zeros((8, smax // bs), dtype=torch.int32)
+    for b, n in enumerate(lens):
+        k[b, n:], v[b, n:] = 0, 0  # the contiguous cache holds nothing past the length
+        blocks = torch.tensor(alloc.allocate(b, -(-n // bs)), dtype=torch.int32)
+        tables[b, :len(blocks)] = blocks
+        t = torch.arange(n)
+        cache = cache.append_batch(blocks[t // bs], t % bs, k[b, :n], v[b, :n])
+    q = rn((8, 1, hq, d), torch.bfloat16)
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = ops.launch_counts().get("decode_attention", 0)
+    got = paged_decode_attention(q, cache, tables.cuda(), length)
+    torch.cuda.synchronize()
+    require(ops.launch_counts(), "decode_attention",
+            ops.launch_counts().get("decode_attention", 0) == before + 1, f"{before + 1}")
+    check_close(f"paged decode_attention {bs}-token pages, lengths {lens} bfloat16", got,
+                ref.decode_attention_ref(q, k, v, length), "bfloat16")
 
 
 def run_ssd(torch, ops, ssd, want_body, label, x, dt, A, Bm, Cm, h0):
@@ -536,8 +597,9 @@ def draft_requests(Request, vocab_size: int):
     return reqs
 
 
-def phase_cluster(torch, ops, serve):
-    """7. The placement-integrated cluster on the card.
+def phase_cluster(torch, ops, serve, perf):
+    """7. The placement-integrated cluster on the card, planning with
+    ``perf`` (phase 8's calibrated PerfModel).
 
     ``ClusterServer(n_nodes=2, device=H100_80GB)`` sizes "chat"
     (smollm-135m) and "draft" (xlstm-125m) replicas from their footprints at
@@ -571,7 +633,9 @@ def phase_cluster(torch, ops, serve):
                           "--format=csv,noheader"], capture_output=True, text=True)
     log(f"  nvidia-smi mig.mode.current, memory.total (information, not gated): "
         f"{(mig.stdout or mig.stderr).strip()}")
-    srv = ClusterServer(n_nodes=2, device=H100_80GB, policy="heuristic")
+    srv = ClusterServer(n_nodes=2, device=H100_80GB, policy="heuristic", perf=perf)
+    if srv.perf is not perf or perf.device_throughput(H100_80GB) != perf.calibration[H100_80GB.name]:
+        raise AssertionError("the cluster does not plan with the calibrated PerfModel")
     walls, layouts, nodes = {}, {}, {}
 
     def verb(label, fn):
@@ -700,6 +764,9 @@ def phase_cluster(torch, ops, serve):
                                   if w.startswith("draft/")),
         "launches": counts,
         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "planned_rates_1g10gb": dict(zip(("prefill_tokens_per_s", "decode_tokens_per_s"),
+                                         srv.perf.rates(H100_80GB, 19))),
+        "planned_parallel_efficiency": srv.perf.parallel_efficiency,
     }
     log(f"  {len(done)} requests, {tokens} tokens in {t_end - t_serve:.3f}s; pump "
         f"{pumped} tokens in {t_end - t_pump:.3f}s = {pumped / (t_end - t_pump):.1f} tok/s; "
@@ -707,9 +774,182 @@ def phase_cluster(torch, ops, serve):
     return summary, counts
 
 
-def bound(nbytes: int, flops: int) -> dict:
+#: phase 8: the profiles a sweep of the H100 80GB measures (distinct compute
+#: and memory footprints, biggest first) and the preset it runs
+CAL_LADDER, CAL_PRESET = [0, 5, 9, 14, 15, 19], "full"
+
+
+def calibration_formulas(kernel: str, shape: dict, b: int):
+    """(tokens, flops, bytes) of one calibration row at batch ``b``: the
+    reference profiler's formulas, f32 inputs (4 bytes per element)."""
+    if kernel == "flash_attention":
+        s, hq, hkv, d = shape["s"], shape["hq"], shape["hkv"], shape["d"]
+        return (b * s, 4 * b * s * s * hq * d / 2,
+                4.0 * (2 * b * s * hq * d + 2 * b * s * hkv * d))
+    if kernel == "decode_attention":
+        smax, hq, hkv, d = shape["smax"], shape["hq"], shape["hkv"], shape["d"]
+        return (b, 4.0 * b * smax * hq * d,
+                4.0 * (2 * b * hq * d + 2 * b * smax * hkv * d) + 4.0 * b)
+    s, h, p, n = shape["s"], shape["h"], shape["p"], shape["n"]
+    return (b * s, 2.0 * b * s * h * p * n * 2,
+            4.0 * (2 * b * s * h * p + b * s * h + 2 * b * s * n + b * h * p * n))
+
+
+def time_calibration_shape(torch, F, wl, plain, launches: int) -> dict:
+    """One calibration workload at its whole-device shape (f32, as the
+    profiler runs it): ms, device_ms, plain_ms, library_ms (SDPA for the
+    attention kernels) and the bound against the float32 peak, counting
+    what these inputs need (decode: the rows up to each length; the SSD
+    scan: its recurrence, 4 P N per step and head)."""
+    cuda = torch.device("cuda")
+    fn, args = wl.make(cuda)
+    n_sets = copies_past_l2(sum(a.numel() * a.element_size() for a in args))
+    sets = [args] + [wl.make(cuda)[1] for _ in range(n_sets - 1)]
+    library, names = None, ()
+    if wl.kernel == "flash_attention":
+        b, s, hq, d = args[0].shape
+        hkv = args[1].shape[2]
+        names = ("fa_fwd_kernel", "fa_tc_kernel")
+        pairs = s * (s + 1) // 2  # causal (q, k) pairs per head
+        nbytes, flops = 4 * (2 * b * s * hq * d + 2 * b * s * hkv * d), 2 * b * hq * pairs * (d + d)
+
+        def library(q, k, v):
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), is_causal=True, enable_gqa=True)
+    elif wl.kernel == "decode_attention":
+        b, _, hq, d = args[0].shape
+        smax, hkv = args[1].shape[1:3]
+        rows = int(args[3].clamp(max=smax).sum())
+        names = ("decode_split_kernel", "decode_combine_kernel")
+        nbytes, flops = 4 * (rows * hkv * 2 * d + 2 * b * hq * d) + 4 * b, 2 * hq * rows * 2 * d
+        mask = (torch.arange(smax, device=cuda)[None, :] < args[3][:, None])[:, None, None, :]
+
+        def library(q, k, v, lens):
+            return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                                  v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+    else:
+        b, s, h, p = args[0].shape
+        n = args[3].shape[-1]
+        names = ("ssd_kernel<", "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                 "ssd_chunk_scan_kernel")
+        nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n + b * h * p * n)
+        flops = b * h * 4 * s * p * n
+    out = dict(shape=f"{wl.shape} float32", launches=launches,
+               ms=time_ms(fn, sets), plain_ms=time_ms(plain, sets, iters=5),
+               library_ms=None if library is None else time_ms(library, sets),
+               **device_times(fn, names, library, sets), **bound(nbytes, flops, F32_FLOPS))
+    del sets, args
+    return out
+
+
+def phase_calibration(torch, F, ops, ref):
+    """8. Calibrate the H100 80GB's MIG ladder through the kernels.
+
+    ``run_calibration([H100_80GB], preset="full", emulate=True)`` on the
+    card, launch counts zeroed just before and read just after: flash,
+    decode and the SSD scan each 6 profiles x (3 warm-up + 10 timed) calls,
+    the flash and SSD calls through their CUDA-core bodies (f32), no int8
+    decode.  Then each kernel at the preset's whole-device shape against its
+    plain version (f32 tolerances), the artifact's structure and every
+    row's tokens, FLOPs and bytes against the formulas, and the PerfModel
+    loaded from it: monotone over the ladder, 0 < parallel_efficiency <= 1.
+    Each kernel's whole-device call is also timed as phase 6 times the
+    serving shapes (``time_calibration_shape``).  Returns the
+    ``calibration`` summary, the launch counts, the PerfModel and the
+    timings by kernel."""
+    from repro_torch.core.perfmodel import PerfModel
+    from repro_torch.core.profiles import H100_80GB
+    from repro_torch.obs import profile
+
+    log(f"calibration: {H100_80GB.name} MIG ladder, preset {CAL_PRESET}, emulated slices "
+        f"(MIG is off), f32")
+    cfg = profile.PRESETS[CAL_PRESET]
+    calls = len(CAL_LADDER) * (cfg["warmup"] + cfg["reps"])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = profile.run_calibration([H100_80GB], preset=CAL_PRESET, emulate=True, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {"flash_attention": calls, "flash_attention.simt": calls, "decode_attention": calls,
+            "ssd_scan": calls, "ssd_scan.simt": calls, "flash_attention.tc": 0, "ssd_scan.tc": 0,
+            "decode_attention_q8": 0}
+    for name, n in want.items():
+        require(counts, name, counts.get(name, 0) == n, f"{n} in the calibration run")
+    bodies = {"flash_attention": "simt (fa_fwd_kernel)", "ssd_scan": "simt (ssd_kernel)",
+              "decode_attention": "decode_split_kernel + decode_combine_kernel"}
+    log(f"  {seconds:.2f}s, launches {counts}")
+
+    # each kernel once at the whole-device shape, against its plain version
+    plain = {"flash_attention": lambda q, k, v: ref.attention_ref(q, k, v, True),
+             "decode_attention": ref.decode_attention_ref, "ssd_scan": ref.ssd_scan_ref}
+    errs, times = {}, {}
+    for wl in profile.whole_device_specs(CAL_PRESET):
+        fn, args = wl.make(torch.device("cuda"))
+        got, wanted = fn(*args), plain[wl.kernel](*args)
+        torch.cuda.synchronize()
+        tols = SSD_TOL if wl.kernel == "ssd_scan" else TOL
+        pairs = zip(("y", "hT"), got, wanted) if isinstance(got, tuple) else [("out", got, wanted)]
+        errs[wl.kernel] = max(check_close(f"{wl.kernel} {out} {wl.shape} float32 (calibration)",
+                                          g, w, "float32", tols) for out, g, w in pairs)
+        del fn, args, got, wanted
+        times[wl.kernel] = dict(time_calibration_shape(torch, F, wl, plain[wl.kernel],
+                                                       counts[wl.kernel]),
+                                max_abs_err=errs[wl.kernel])
+
+    # the artifact: structure, rows against the formulas, the PerfModel
+    if set(report) != {"config", "host", "devices", "kernels"} or \
+            list(report["devices"]) != [H100_80GB.name]:
+        raise AssertionError(f"calibration report sections {sorted(report)}, devices "
+                             f"{list(report['devices'])}")
+    entry = report["devices"][H100_80GB.name]
+    if list(entry["profiles"]) != [str(p) for p in CAL_LADDER] or entry["emulated"] is not True:
+        raise AssertionError(f"calibration profiles {list(entry['profiles'])}, emulated "
+                             f"{entry['emulated']}")
+    if report["config"]["impl"] != "cuda" or len(report["kernels"]) != 3 * len(CAL_LADDER):
+        raise AssertionError(f"calibration impl {report['config']['impl']}, "
+                             f"{len(report['kernels'])} rows")
+    shapes = {"flash_attention": ("flash", "compute_frac"),
+              "decode_attention": ("decode", "memory_frac"), "ssd_scan": ("ssd", "compute_frac")}
+    rows = []
+    for r in report["kernels"]:
+        key, frac = shapes[r["kernel"]]
+        b = max(1, round(cfg[key]["b"] * r[frac]))
+        if (r["tokens"], r["flops"], r["bytes"]) != calibration_formulas(r["kernel"], cfg[key], b) \
+                or not r["wall_s"]["p50"] > 0 or r["wall_s"]["reps"] != cfg["reps"]:
+            raise AssertionError(f"calibration row {r}")
+        rows.append({k: r[k] for k in ("kernel", "profile_id", "profile", "shape", "tokens_per_s",
+                                       "achieved_gbytes_per_s", "achieved_gflops_per_s")}
+                    | {"p50_s": r["wall_s"]["p50"], "p95_s": r["wall_s"]["p95"]})
+    pm = PerfModel.from_calibration(report)
+    rates = [pm.rates(H100_80GB, pid) for pid in CAL_LADDER]
+    if not 0.0 < pm.parallel_efficiency <= 1.0 or any(
+            pb < ps or db < ds for (pb, db), (ps, ds) in zip(rates, rates[1:])):
+        raise AssertionError(f"calibrated PerfModel: efficiency {pm.parallel_efficiency}, "
+                             f"rates over {CAL_LADDER} {rates}")
+    whole = entry["whole_device"]
+    log(f"  whole device: prefill {whole['prefill_tokens_per_s']:.1f} tok/s, decode "
+        f"{whole['decode_tokens_per_s']:.1f} tok/s, parallel_efficiency "
+        f"{entry['parallel_efficiency']:.4f}")
+    for pid, p in entry["profiles"].items():
+        log(f"  {p['name']:>8} (id {pid:>2}): prefill {p['prefill_tokens_per_s']:.1f} tok/s, "
+            f"decode {p['decode_tokens_per_s']:.1f} tok/s")
+    summary = {
+        "device_model": H100_80GB.name, "preset": CAL_PRESET, "emulated": True,
+        "dtype": "float32", "seconds": seconds,
+        "whole_device": whole, "parallel_efficiency": entry["parallel_efficiency"],
+        "profiles": entry["profiles"],
+        "perfmodel_rates": {str(pid): list(r) for pid, r in zip(CAL_LADDER, rates)},
+        "rows": rows, "bodies": bodies, "max_abs_err": errs,
+        "host_contended": report["host"]["contended"], "launches": counts,
+    }
+    return summary, counts, pm, times
+
+
+def bound(nbytes: int, flops: int, peak: float = BF16_FLOPS) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -967,13 +1207,18 @@ def main() -> int:
     del xres
     entries = phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs)
     torch.cuda.empty_cache()
+    calibration, cal_counts, perf, cal_times = phase_calibration(torch, F, ops, ref)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cluster, cluster_counts = phase_cluster(torch, ops, serve)
+    cluster, cluster_counts = phase_cluster(torch, ops, serve, perf)
     for e in entries:
+        e["launches_by_path"]["calibration"] = cal_counts.get(e["name"], 0)
+        if e["name"] in cal_times:
+            e["calibration"] = cal_times[e["name"]]
         e["launches_by_path"]["cluster"] = cluster_counts.get(e["name"], 0)
     for e in entries:
-        for path, t in [(e["launches_path"], e)] + ([(ZAMBA2, e["zamba2"])] if "zamba2" in e
-                                                     else []):
+        for path, t in [(e["launches_path"], e)] + [(p, e[k]) for p, k in (
+                (ZAMBA2, "zamba2"), ("calibration", "calibration")) if k in e]:
             lib = "none" if t["library_ms"] is None else (
                 f"{t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} ms")
             log(f"  {e['name']} {t['shape']}: {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms "
@@ -985,6 +1230,7 @@ def main() -> int:
         log(f"  engine {arch}: {res['tok_per_s']:.1f} tok/s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": entries}))
+    log(json.dumps({"calibration": calibration}))
     log(json.dumps({"cluster": cluster}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,17 +17,18 @@ profile's compute/memory fractions, optionally raised to a
 still monotone: a bigger slice never serves slower).  Whole-device numbers
 come from a user calibration dict, a ``calibrator`` hook, or a built-in
 table, in that order — measurements outrank planning numbers.  The kernel
-calibration profiler (the reference's ``obs/profile.py``)
-produces a ``CALIBRATION.json`` artifact that
-:meth:`PerfModel.from_calibration` loads straight into the calibration
-dict, so autoscaling and SLO attainment can plan on measured rates.
+calibration profiler (:mod:`repro_torch.obs.profile`, driven by
+``python -m repro_torch.launch.calibrate``) produces a ``CALIBRATION.json``
+artifact that :meth:`PerfModel.from_calibration` loads straight into the
+calibration dict, so autoscaling and SLO attainment can plan on measured
+rates.
 
 This is the port's copy of ``repro/core/perfmodel.py``.  ``DEVICE_THROUGHPUT``
 holds the reference's round planning numbers, copied for parity; none of
 them is a measured rate of any device.  It has no row for ``H100-80GB``:
-a rate for that card comes from calibrating the port's kernels on it (the
-calibration profiler is not ported yet), so until then the per-memory-GB
-fallback below applies to it.
+that card's rates come from calibrating the port's kernels on it and
+loading the artifact; a model built without one falls back to the
+per-memory-GB estimate below for it.
 """
 from __future__ import annotations
 
@@ -131,7 +132,8 @@ class PerfModel:
         """Build a measured PerfModel from the kernel profiler's artifact.
 
         ``source`` is a ``CALIBRATION.json`` path or the already-parsed
-        report dict (the reference profiler's ``run_calibration`` output).  Each
+        report dict (``repro_torch.obs.profile.run_calibration``'s output, or
+        the reference profiler's: the schema is shared).  Each
         device's ``whole_device`` rates become the calibration table entry
         and the profiler's fitted ``parallel_efficiency`` (mean across
         devices, clamped to (0, 1]) becomes the scaling exponent unless

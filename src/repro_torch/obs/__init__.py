@@ -1,7 +1,7 @@
 """repro_torch.obs — zero-dependency fleet telemetry (spans, metrics, exporters).
-A copy of the reference's ``obs`` package (its calibration profiler and
-report renderer are not ported yet); metric names keep the ``repro_``
-prefix, so both packages export the same exposition.
+A copy of the reference's ``obs`` package (its report renderer is not
+ported yet); metric names keep the ``repro_`` prefix, so both packages
+export the same exposition.
 
 The control plane (engine verbs, placement fabric, serving cluster) is
 instrumented against a process-global :class:`Telemetry` handle.  The
@@ -28,6 +28,10 @@ Layers (see the submodules for detail):
   dumps.
 * ``host``    — host-contention guard for bench entrypoints (stale
   ``pytest``/bench processes, load average) -> ``contended`` flag.
+* ``profile`` — kernel calibration profiler: measures the
+  ``repro_torch.kernels`` ops under MIG-profile-shaped budgets and builds the
+  ``CALIBRATION.json`` artifact ``PerfModel.from_calibration`` consumes.
+  (Imported lazily — ``repro_torch.obs`` itself does not import the kernels.)
 """
 from __future__ import annotations
 
