@@ -62,7 +62,17 @@ Phases, each of which passes or raises (any failure exits non-zero):
      xlstm-125m "draft" replicas sized onto H100 80GB MIG slices, placed,
      served through full-width engines, retired, compacted with a live
      replica's KV cache handed off, reconfigured and pumped to completion,
-     printed as a ``{"cluster": ...}`` JSON line.
+     printed as a ``{"cluster": ...}`` JSON line;
+  9. the placement core at fleet scale (``phase_fleet``) on H100 80GB
+     fleets, the demand run planning with phase 8's PerfModel: each case
+     runs with the fabric's torch sweep on the card (``fabric_device=
+     "cuda"``: at least one full sweep there, none in numpy) and with the
+     numpy sweep, held exactly equal: the slabs at 4096 GPUs
+     (and 256 rows against the scalar ``can_place_at``), first_fit /
+     rule_based / frag_aware deploys at 1024 and 4096 GPUs (the scalar path
+     too where it fits the time), a frag_aware online trace over 1024 GPUs
+     and a DemandSimulator run on 256 nodes, each with equal layouts and
+     stats across backends; printed as a ``{"fleet": ...}`` JSON line.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing any
 result.
@@ -751,6 +761,7 @@ def phase_cluster(torch, ops, serve, perf):
     tokens = sum(len(c.tokens) for c in done.values())
     summary = {
         "device_model": H100_80GB.name, "nodes": 2, "policy": "heuristic",
+        "fabric_device": str(srv.engine.policy.fabric_device),
         "profiles": profiles, "retired": retired,
         "layouts": layouts, "nodes_used": nodes,
         "compact": compact, "reconfigure": reconfigure,
@@ -772,6 +783,359 @@ def phase_cluster(torch, ops, serve, perf):
         f"{pumped} tokens in {t_end - t_pump:.3f}s = {pumped / (t_end - t_pump):.1f} tok/s; "
         f"launches {counts}")
     return summary, counts
+
+
+#: phase 9: the placement core at fleet scale on the card
+FLEET_SEED = 0
+FLEET_SWEEP_GPUS = 4096
+FLEET_SWEEP_ROWS = 256  # rows whose feasibility is also held to can_place_at
+FLEET_SWEEP_REPS = 10
+FLEET_DEPLOY_GPUS = (1024, 4096)
+#: fleet sizes the scalar deploys run at: at 4096 GPUs they take over 60 s
+#: on the host (first_fit 70.1 s on the H100 machine's host; first_fit 120 s
+#: and rule_based 189 s on an 8-core development host), a phase's time on
+#: its own, so they are held to the sweeps at 1024 GPUs only
+FLEET_SCALAR_GPUS = (1024,)
+#: fleet sizes whose deploys are also held to ``metrics.evaluate`` across
+#: backends: it costs ~12 s a layout at 4096 GPUs on the host (it looks each
+#: workload up across the fleet), where equal layouts and pending lists
+#: already fix its values
+FLEET_METRICS_GPUS = (1024,)
+#: an online trace over 1024 GPUs, with the fleet-scale trace's scaling
+#: (arrival rate GPUs / 8 per second, mean lifetime 0.6 x horizon)
+FLEET_TRACE_GPUS, FLEET_TRACE_HORIZON = 1024, 8.0
+FLEET_TRACE_VERBS = dict(compact_every=3.0, reconfigure_every=5.0)
+#: a demand run on 256 nodes: phase 7's chat (smollm-135m, MIX's mean
+#: request lengths) and draft pair on 1g.10gb slices.  The rates come from
+#: phase 8's PerfModel: chat offers FLEET_DEMAND_CHAT_REPLICAS replicas'
+#: worth of load at the autoscaler's target utilization, with an 8x flash
+#: crowd for 15 s, draft FLEET_DEMAND_DRAFT_REPLICAS.  This load fills about
+#: 1% of the fleet: filling it would take the fleet's capacity, some 450,000
+#: requests per simulated second at the calibrated rates, against some
+#: 25,000 requests per second of wall time that the event loop replays on
+#: the host.  So (d) checks the demand loop on a 256-node mirror and the
+#: backends' parity, not the fleet's behaviour under load.
+FLEET_DEMAND_NODES, FLEET_DEMAND_HORIZON = 256, 60.0
+FLEET_DEMAND_CHAT_REPLICAS, FLEET_DEMAND_DRAFT_REPLICAS = 2.0, 0.5
+FLEET_PHASE_TARGET_S = 120.0
+
+
+def fleet_sweep_counter(fabric):
+    """Wrap the fabric's numpy and torch all-profile sweeps and count full
+    sweeps per backend: a call over more than one row (the refresh after
+    ``apply``/``unapply`` passes its one row, and stays numpy on the host
+    whatever the device; it counts under ``numpy_row``).  Returns the
+    ``(counts, seconds)`` dicts, keyed alike (seconds on the host clock
+    around each call; a torch sweep ends in its copy back to the host)."""
+    counts, seconds = {}, {}
+
+    def wrap(name, backend_of):
+        real = getattr(fabric, name)
+
+        def counted(occ, *args, **kw):
+            key = backend_of(occ) + ("" if occ.shape[0] > 1 else "_row")
+            t0 = time.perf_counter()
+            out = real(occ, *args, **kw)
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+            counts[key] = counts.get(key, 0) + 1
+            return out
+
+        setattr(fabric, name, counted)
+
+    for name in ("_feasible_all_np", "_score_all_np"):
+        wrap(name, lambda occ: "numpy")
+    for name in ("_feasible_all_torch", "_score_all_torch"):
+        wrap(name, lambda occ: occ.device.type)
+    return counts, seconds
+
+
+def phase_fleet(torch, perf):
+    """9. The placement core at fleet scale, its full sweeps on the card.
+
+    (a) ``generate_test_case(FLEET_SEED, 4096, H100_80GB)``: the torch
+    sweep on the card gives the feasibility and both score slabs exactly
+    (tolerance 0: bools and int32s) as the numpy sweep does, and on 256
+    sampled rows feasibility equals ``GPUState.can_place_at``; one sweep per
+    backend is timed (warm median of FLEET_SWEEP_REPS, the card's with
+    ``torch.cuda.synchronize``).  (b) Deploys at 1024 and 4096 GPUs:
+    first_fit and rule_based through the numpy sweep, ``fabric_device=
+    "cuda"`` and (at FLEET_SCALAR_GPUS) the scalar path, frag_aware through
+    the two sweeps; every run of a policy lands the same ``wid -> (gid,
+    index)`` layout and pending list, with the same ``metrics.evaluate``
+    values at FLEET_METRICS_GPUS (at 4096 GPUs equal layouts and pending
+    lists fix the metrics).  (c) A frag_aware online trace over 1024 GPUs
+    with compaction and reconfiguration, replayed through the card's and
+    the numpy sweep: equal ``TraceStats`` (all but the engine's seconds) and
+    final layouts.  (d) A ``DemandSimulator`` run on 256 nodes planned with
+    ``perf`` (phase 8's PerfModel, which also sets its request rates),
+    frag_aware, through both sweeps: equal stats and layouts.  Every card run made at least one full
+    sweep on the card and none in numpy; no kernel launched.  Returns the
+    ``fleet`` summary."""
+    from repro_torch.core import fabric, metrics
+    from repro_torch.core.autoscaler import SLO, Autoscaler, AutoscalerConfig
+    from repro_torch.core.engine import PlacementEngine
+    from repro_torch.core.events import (DemandSimulator, ModelServiceSpec, OnlineSimulator,
+                                         build_fleet, generate_trace)
+    from repro_torch.core.profiles import H100_80GB
+    from repro_torch.core.simulator import generate_test_case
+    from repro_torch.core.traffic import ConstantRate, FlashCrowd, ModelTraffic, generate_requests
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    sweeps, sweep_s = fleet_sweep_counter(fabric)
+    part_s, t_part = {}, [t_phase]
+    ops.reset_launch_counts()
+
+    def part_done(name):
+        now = time.perf_counter()
+        part_s[name], t_part[0] = now - t_part[0], now
+
+    def layout_of(state):
+        return {pl.wid: (gid, pl.index) for gid, g in state.gpus.items() for pl in g.placements}
+
+    def counted(label, card, fn):
+        """Run ``fn`` with the sweep counts zeroed; a card run must sweep the
+        fleet on the card at least once and never in numpy, a host run never
+        on the card.  Returns ``fn``'s result and the run's counts, with the
+        seconds spent in the sweeps under ``seconds``."""
+        sweeps.clear()
+        sweep_s.clear()
+        out = fn()
+        got = dict(sweeps, seconds=dict(sweep_s))
+        full = {k: v for k, v in sweeps.items() if not k.endswith("_row")}
+        ok = (full.get("cuda", 0) >= 1 and full.get("numpy", 0) == 0) if card else \
+            full.get("cuda", 0) == 0
+        if not ok:
+            raise AssertionError(f"{label}: full sweeps {got}")
+        return out, got
+
+    # (a) the slabs at 4096 GPUs
+    log(f"fleet: the placement core on {H100_80GB.name} fleets, full sweeps on the card")
+    tc = generate_test_case(FLEET_SEED, n_gpus=FLEET_SWEEP_GPUS, device=H100_80GB)
+    state = tc.initial
+    fabs = {"numpy": fabric.FleetFabric(state, device=None),
+            "cuda": fabric.FleetFabric(state, device="cuda")}
+    slabs, slab_sweeps = {}, {}
+    for backend, fab in fabs.items():
+        def sweep(fab=fab):
+            return (fab._sweep_feasible(),) + fab._sweep_scores()
+        slabs[backend], slab_sweeps[backend] = counted(f"sweep {backend}", backend == "cuda",
+                                                       sweep)
+    for name, got, want in zip(("feasible", "waste_delta", "frag_runs_after"), slabs["cuda"],
+                               slabs["numpy"]):
+        if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"cuda sweep {name} {got.dtype}{got.shape} != numpy "
+                                 f"{want.dtype}{want.shape} (tolerance 0)")
+    fab, feas = fabs["numpy"], slabs["cuda"][0]
+    rows = sorted(random.Random(FLEET_SEED).sample(range(len(fab.gids)), FLEET_SWEEP_ROWS))
+    checked = 0
+    for r in rows:
+        gpu = state.gpus[fab.gids[r]]
+        for p, prof in enumerate(gpu.device.profiles):
+            for i in range(fab.M):
+                if bool(feas[r, p, i]) != gpu.can_place_at(prof, i):
+                    raise AssertionError(f"cuda feasibility {fab.gids[r]} {prof.name} @ {i}")
+                checked += 1
+    sweep_ms = {}
+    for backend, fab in fabs.items():
+        for part, fn in (("feasible", fab._sweep_feasible), ("score", fab._sweep_scores)):
+            times = []
+            for _ in range(FLEET_SWEEP_REPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            sweep_ms.setdefault(backend, {})[part] = float(np.median(times[1:]))
+    sweep = {
+        "gpus": FLEET_SWEEP_GPUS, "seed": FLEET_SEED,
+        "allocated_gpus": len(state.used_gpus()), "placements": len(state.workloads),
+        "slab_shape": list(feas.shape), "equal": True, "tolerance": 0,
+        "rows_checked_against_can_place_at": len(rows), "triples_checked": checked,
+        "sweeps": slab_sweeps, "ms": sweep_ms, "reps": FLEET_SWEEP_REPS,
+    }
+    log(f"  (a) {FLEET_SWEEP_GPUS} GPUs, {sweep['allocated_gpus']} allocated: slabs "
+        f"{list(feas.shape)} equal; {checked} triples on {len(rows)} rows == can_place_at; "
+        f"sweep ms (feasible, score) numpy {sweep_ms['numpy']}, cuda {sweep_ms['cuda']}")
+    part_done("a_sweeps")
+
+    # (b) deploys at 1024 and 4096 GPUs
+    deploys = {}
+    for n in FLEET_DEPLOY_GPUS:
+        tc = generate_test_case(FLEET_SEED, n_gpus=n, device=H100_80GB)
+        all_wl = list(tc.initial.workloads.values()) + list(tc.new_workloads)
+        rows_n = {}
+        for policy in ("first_fit", "rule_based", "frag_aware"):
+            runs = [("numpy", "on", None), ("cuda", "on", "cuda")]
+            if policy != "frag_aware" and n in FLEET_SCALAR_GPUS:
+                runs.insert(0, ("scalar", "off", None))
+            res, seconds, counts_by_run = {}, {}, {}
+            for backend, fab_mode, dev in runs:
+                st = tc.initial.clone()
+                eng = PlacementEngine(policy, fabric=fab_mode, fabric_device=dev)
+
+                def deploy(eng=eng, st=st):
+                    t0 = time.perf_counter()
+                    out = eng.deploy(st, tc.new_workloads)
+                    return out, time.perf_counter() - t0
+
+                (out, seconds[backend]), counts_by_run[backend] = counted(
+                    f"{policy} deploy {n} {backend}", backend == "cuda", deploy)
+                st.validate()
+                res[backend] = (st, [w.wid for w in out.pending])
+            first = runs[0][0]
+            base_layout, base_pending = layout_of(res[first][0]), res[first][1]
+            evaluated = [b for b, _, _ in runs] if n in FLEET_METRICS_GPUS else []
+            t0 = time.perf_counter()
+            mets = {b: dataclasses.asdict(metrics.evaluate(res[b][0], tc.initial, all_wl))
+                    for b in evaluated}
+            eval_s = time.perf_counter() - t0
+            for backend, (st, pending) in res.items():
+                if layout_of(st) != base_layout or pending != base_pending:
+                    raise AssertionError(f"{policy} at {n} GPUs: the {backend} layout differs "
+                                         f"from the {first} layout")
+                if backend in mets and mets[backend] != mets[first]:
+                    raise AssertionError(f"{policy} at {n} GPUs: {backend} metrics "
+                                         f"{mets[backend]} != {first} {mets[first]}")
+            used = len({gid for gid, _ in base_layout.values()})
+            rows_n[policy] = {"runs": [b for b, _, _ in runs], "layouts_equal": True,
+                              "metrics_equal": bool(mets), "metrics_evaluated_on": evaluated,
+                              "metrics": mets.get(first), "gpus_used": used,
+                              "seconds": seconds,
+                              "metrics_seconds": eval_s,
+                              "sweeps": counts_by_run,
+                              "placed": len(base_layout), "pending": len(base_pending)}
+            log(f"  (b) {n} GPUs {policy}: {len(base_layout)} placed, {len(base_pending)} "
+                f"pending, {used} GPUs used, layouts equal over "
+                f"{[b for b, _, _ in runs]}{', metrics equal' if mets else ''}; deploy s "
+                + ", ".join(f"{b} {s:.3f}" for b, s in seconds.items()))
+        deploys[n] = rows_n
+        part_done(f"b_deploys_{n}")
+    scalar_note = (f"first_fit and rule_based run the scalar path at {list(FLEET_SCALAR_GPUS)} "
+                   f"GPUs only: it takes over 60 s at 4096 on the host")
+    log(f"  (b) {scalar_note}")
+
+    # (c) an online trace over 1024 GPUs
+    trace_runs = {}
+    for backend, dev in (("cuda", "cuda"), ("numpy", None)):
+        fleet = build_fleet([(H100_80GB, FLEET_TRACE_GPUS)])
+        trace = generate_trace(FLEET_SEED, fleet, horizon=FLEET_TRACE_HORIZON,
+                               arrival_rate=FLEET_TRACE_GPUS / 8.0,
+                               mean_lifetime=0.6 * FLEET_TRACE_HORIZON)
+        sim = OnlineSimulator(fleet, PlacementEngine("frag_aware", fabric_device=dev),
+                              **FLEET_TRACE_VERBS)
+        t0 = time.perf_counter()
+        stats, got = counted(f"trace {backend}", backend == "cuda", lambda: sim.run(trace))
+        wall = time.perf_counter() - t0
+        fleet.validate()
+        d = stats.as_dict()
+        trace_runs[backend] = {"stats": d, "layout": layout_of(fleet), "sweeps": got,
+                               "wall_s": wall, "engine_seconds": d.pop("engine_seconds"),
+                               "arrivals": trace.n_arrivals}
+    if trace_runs["cuda"]["stats"] != trace_runs["numpy"]["stats"] or \
+            trace_runs["cuda"]["layout"] != trace_runs["numpy"]["layout"]:
+        diff = {k: (v, trace_runs["numpy"]["stats"][k])
+                for k, v in trace_runs["cuda"]["stats"].items()
+                if v != trace_runs["numpy"]["stats"][k]}
+        raise AssertionError(f"trace: the cuda and numpy replays differ: {diff}")
+    ts = trace_runs["cuda"]["stats"]
+    trace_summary = {
+        "gpus": FLEET_TRACE_GPUS, "horizon": FLEET_TRACE_HORIZON,
+        "arrival_rate": FLEET_TRACE_GPUS / 8.0, "mean_lifetime": 0.6 * FLEET_TRACE_HORIZON,
+        "verbs": FLEET_TRACE_VERBS, "policy": "frag_aware",
+        "arrivals": trace_runs["cuda"]["arrivals"], "stats_equal": True, "layouts_equal": True,
+        "stats": ts,
+        "by_backend": {b: {k: r[k] for k in ("sweeps", "wall_s", "engine_seconds")}
+                       for b, r in trace_runs.items()},
+    }
+    log(f"  (c) trace over {FLEET_TRACE_GPUS} GPUs, {trace_summary['arrivals']} arrivals: "
+        f"stats and layouts equal; avg GPUs {ts['time_avg_gpus_used']:.2f}, peak "
+        f"{ts['peak_gpus_used']}, {ts['n_compactions']} compactions, {ts['n_reconfigures']} "
+        f"reconfigures, {ts['n_migrations']} migrations; engine s cuda "
+        f"{trace_runs['cuda']['engine_seconds']:.3f}, numpy "
+        f"{trace_runs['numpy']['engine_seconds']:.3f}")
+
+    part_done("c_trace")
+
+    # (d) a DemandSimulator run on 256 nodes, planned with phase 8's PerfModel
+    slo = SLO(ttft_seconds=0.5, tpot_seconds=0.05)
+    scaler_cfg = AutoscalerConfig(up_cooldown=0.0, down_cooldown=10.0)
+    shapes = {"chat": (366, 48), "draft": (128, 32)}
+    capacity = {m: perf.capacity_rps(H100_80GB, 19, *shape) for m, shape in shapes.items()}
+    rates = {m: n * scaler_cfg.target_utilization * capacity[m]
+             for m, n in (("chat", FLEET_DEMAND_CHAT_REPLICAS),
+                          ("draft", FLEET_DEMAND_DRAFT_REPLICAS))}
+    demand_runs = {}
+    for backend, dev in (("cuda", "cuda"), ("numpy", None)):
+        traffic = generate_requests(
+            [ModelTraffic("chat", FlashCrowd(rates["chat"], flash_at=20.0, flash_duration=15.0,
+                                             multiplier=8.0),
+                          mean_prompt_len=shapes["chat"][0], mean_decode_len=shapes["chat"][1]),
+             ModelTraffic("draft", ConstantRate(rates["draft"]),
+                          mean_prompt_len=shapes["draft"][0],
+                          mean_decode_len=shapes["draft"][1])],
+            seed=FLEET_SEED, horizon=FLEET_DEMAND_HORIZON)
+        fleet = build_fleet([(H100_80GB, FLEET_DEMAND_NODES)])
+        specs = [ModelServiceSpec("chat", 19, slo=slo, initial_replicas=6),
+                 ModelServiceSpec("draft", 19, slo=slo, initial_replicas=2)]
+        sim = DemandSimulator(
+            fleet, PlacementEngine("frag_aware", fabric_device=dev), specs,
+            autoscaler=Autoscaler(scaler_cfg), perf=perf, compact_every=15.0)
+        if sim.perf is not perf:
+            raise AssertionError("the demand run does not plan with the calibrated PerfModel")
+        t0 = time.perf_counter()
+        stats, got = counted(f"demand {backend}", backend == "cuda", lambda: sim.run(traffic))
+        wall = time.perf_counter() - t0
+        fleet.validate()
+        d = stats.as_dict()
+        demand_runs[backend] = {"stats": d, "layout": layout_of(fleet), "sweeps": got,
+                                "wall_s": wall, "engine_seconds": d.pop("engine_seconds")}
+    if demand_runs["cuda"]["stats"] != demand_runs["numpy"]["stats"] or \
+            demand_runs["cuda"]["layout"] != demand_runs["numpy"]["layout"]:
+        raise AssertionError("demand: the cuda and numpy runs differ")
+    ds = demand_runs["cuda"]["stats"]
+    if ds["n_requests"] == 0 or ds["n_completed"] + ds["n_unserved"] != ds["n_requests"]:
+        raise AssertionError(f"demand: requests not accounted: {ds}")
+    demand = {
+        "nodes": FLEET_DEMAND_NODES, "horizon": FLEET_DEMAND_HORIZON, "policy": "frag_aware",
+        "slo": dataclasses.asdict(slo), "stats_equal": True, "layouts_equal": True,
+        "planned_rates_1g10gb": dict(zip(("prefill_tokens_per_s", "decode_tokens_per_s"),
+                                         perf.rates(H100_80GB, 19))),
+        "replica_capacity_rps": capacity, "offered_rps": rates,
+        "offered_replicas": {"chat": FLEET_DEMAND_CHAT_REPLICAS,
+                             "draft": FLEET_DEMAND_DRAFT_REPLICAS},
+        "flash_multiplier": 8.0,
+        "peak_fleet_share": ds["peak_gpus_used"] / FLEET_DEMAND_NODES,
+        "checks": "the demand loop and backend parity; the load fills about 1% of the fleet",
+        "slo_attainment": ds["slo_attainment"],
+        "slo_attainment_by_model": ds["slo_attainment_by_model"],
+        "time_avg_gpus_used": ds["time_avg_gpus_used"],
+        "time_avg_compute_waste": ds["time_avg_compute_waste"],
+        "time_avg_memory_waste": ds["time_avg_memory_waste"],
+        "scale_decisions": {k: ds[k] for k in ("n_scale_ups", "n_scale_downs", "n_resizes",
+                                               "n_deploy_rejected")},
+        "stats": ds,
+        "by_backend": {b: {k: r[k] for k in ("sweeps", "wall_s", "engine_seconds")}
+                       for b, r in demand_runs.items()},
+    }
+    log(f"  (d) demand on {FLEET_DEMAND_NODES} nodes (chat {rates['chat']:.1f}/s, 8x for 15 s, "
+        f"draft {rates['draft']:.1f}/s from the PerfModel; peak {ds['peak_gpus_used']} GPUs, "
+        f"{demand['peak_fleet_share']:.2%} of the fleet): {ds['n_requests']} requests, SLO "
+        f"attainment {ds['slo_attainment']:.4f}, avg GPUs {ds['time_avg_gpus_used']:.3f}, "
+        f"compute waste {ds['time_avg_compute_waste']:.3f}, scale decisions "
+        f"{demand['scale_decisions']}; stats and layouts equal")
+
+    part_done("d_demand")
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"phase 9 launched kernels: {launches}")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 9: {seconds:.1f}s (target {FLEET_PHASE_TARGET_S:.0f} s), by part "
+        + ", ".join(f"{k} {v:.1f}s" for k, v in part_s.items()))
+    return {"device_model": H100_80GB.name, "seconds": seconds, "part_seconds": part_s,
+            "target_seconds": FLEET_PHASE_TARGET_S, "sweep": sweep, "deploys": deploys,
+            "scalar": scalar_note, "trace": trace_summary, "demand": demand,
+            "kernel_launches": launches}
 
 
 #: phase 8: the profiles a sweep of the H100 80GB measures (distinct compute
@@ -1211,6 +1575,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cluster, cluster_counts = phase_cluster(torch, ops, serve, perf)
+    fleet = phase_fleet(torch, perf)
     for e in entries:
         e["launches_by_path"]["calibration"] = cal_counts.get(e["name"], 0)
         if e["name"] in cal_times:
@@ -1232,6 +1597,7 @@ def main() -> int:
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"calibration": calibration}))
     log(json.dumps({"cluster": cluster}))
+    log(json.dumps({"fleet": fleet}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

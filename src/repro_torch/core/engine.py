@@ -26,9 +26,13 @@ transactional state instead of whole-cluster clones.
 Fleet-scale deployments route through the vectorized fabric
 (``core/fabric.py``): with ``fabric="auto"`` (default), first_fit /
 load_balanced / rule_based deploys on fleets of >= ``FABRIC_AUTO_MIN_GPUS``
-GPUs use the batched numpy feasibility sweeps — placement-identical to
-the scalar path.  The ``frag_aware``
-policy (fragmentation-aware scoring per Ting et al.) is fabric-native.
+GPUs use the batched feasibility sweeps — placement-identical to the
+scalar path.  The ``frag_aware`` policy (fragmentation-aware scoring per
+Ting et al.) is fabric-native.  ``fabric_device`` says where the fabric's
+full sweeps run: a torch device, ``"cuda"`` by default (it raises without a
+GPU; ``"cpu"`` runs the same torch ops on the host), as the reference runs
+its jitted JAX sweeps on its accelerator; None, asked for explicitly, keeps
+them in numpy on the host.
 
 Plan / score / commit
 ---------------------
@@ -47,6 +51,9 @@ import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Type, Union
 
+import torch
+
+from ..device import resolve_device
 from ..obs import get_telemetry
 from . import baselines, heuristic
 from .migration import (
@@ -115,16 +122,23 @@ class PlacementPolicy:
     (first_fit / load_balanced / rule_based deploys): ``"auto"`` uses it on
     fleets of >= FABRIC_AUTO_MIN_GPUS GPUs, ``"on"`` / ``"off"`` force it.
     The fabric paths are placement-identical to the scalar references.
+    ``fabric_device`` is where their full sweeps run: a torch device,
+    resolved here, so the default ``"cuda"`` raises without a GPU; None asks
+    for the numpy sweep on the host.
     """
 
     name: str = "abstract"
     supports: Tuple[str, ...] = VERBS
 
-    def __init__(self, time_limit: float = 30.0, fabric: str = "auto"):
+    def __init__(self, time_limit: float = 30.0, fabric: str = "auto",
+                 fabric_device: Optional[Union[str, torch.device]] = "cuda"):
         if fabric not in ("auto", "on", "off"):
             raise ValueError(f"fabric must be auto/on/off, got {fabric!r}")
         self.time_limit = time_limit
         self.fabric = fabric
+        self.fabric_device = (
+            None if fabric_device is None else resolve_device(fabric_device)
+        )
 
     def _use_fabric(self, state: ClusterState) -> bool:
         if self.fabric == "on":
@@ -182,7 +196,9 @@ class _BaselinePolicy(PlacementPolicy):
         if self._fabric_deploy and self._use_fabric(state):
             from . import fabric
 
-            return getattr(fabric, self._fabric_deploy)(state, new_workloads)
+            return getattr(fabric, self._fabric_deploy)(
+                state, new_workloads, device=self.fabric_device
+            )
         return type(self)._deploy(state, new_workloads)
 
     def compact(self, state):
@@ -257,7 +273,9 @@ class RuleBasedPolicy(PlacementPolicy):
         if self._use_fabric(state):
             from . import fabric
 
-            return fabric.fabric_initial_deployment(state, new_workloads)
+            return fabric.fabric_initial_deployment(
+                state, new_workloads, device=self.fabric_device
+            )
         return heuristic.initial_deployment(state, new_workloads)
 
     def compact(self, state):
@@ -279,17 +297,19 @@ class FragAwarePolicy(PlacementPolicy):
     def deploy(self, state, new_workloads):
         from . import fabric
 
-        return fabric.fabric_frag_aware_deploy(state, new_workloads)
+        return fabric.fabric_frag_aware_deploy(
+            state, new_workloads, device=self.fabric_device
+        )
 
     def compact(self, state):
         from . import fabric
 
-        fabric.fabric_frag_aware_compact(state)
+        fabric.fabric_frag_aware_compact(state, device=self.fabric_device)
 
     def reconfigure(self, state):
         from . import fabric
 
-        return fabric.fabric_frag_aware_reconfigure(state)
+        return fabric.fabric_frag_aware_reconfigure(state, device=self.fabric_device)
 
 
 # ---------------------------------------------------------------------------
@@ -403,12 +423,17 @@ def available_policies() -> Tuple[str, ...]:
 
 
 def get_policy(
-    name: str, time_limit: float = 30.0, fabric: str = "auto"
+    name: str,
+    time_limit: float = 30.0,
+    fabric: str = "auto",
+    fabric_device: Optional[Union[str, torch.device]] = "cuda",
 ) -> PlacementPolicy:
     key = _ALIASES.get(name, name)
     if key not in POLICIES:
         raise ValueError(f"unknown policy {name!r}; choose from {available_policies()}")
-    return POLICIES[key](time_limit=time_limit, fabric=fabric)
+    return POLICIES[key](
+        time_limit=time_limit, fabric=fabric, fabric_device=fabric_device
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -431,8 +456,9 @@ class PlacementEngine:
         commit: Union[str, CommitPolicy] = "always",
         cost_model: Optional[MigrationCostModel] = None,
         plan_deploys: bool = False,
+        fabric_device: Optional[Union[str, torch.device]] = "cuda",
     ):
-        self.policy = get_policy(policy, time_limit, fabric)
+        self.policy = get_policy(policy, time_limit, fabric, fabric_device)
         self.commit_policy = (
             commit if isinstance(commit, CommitPolicy) else CommitPolicy(mode=commit)
         )

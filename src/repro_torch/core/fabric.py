@@ -12,7 +12,8 @@ triples in one batched sweep:
                         per-row slice counts, media-extension budgets, and
                         per-device profile tables (memory/compute spans,
                         Table-1 allowed-index masks, preference ranks).
-  * feasibility       — a batched numpy sweep reproducing
+  * feasibility       — a batched sweep (numpy, or torch ops on a device)
+                        reproducing
                         ``GPUState.can_place_at`` exactly: allowed-index,
                         span-fit (incl. the m7 attachment rule, which falls
                         out of the span arithmetic), overlap, and
@@ -36,21 +37,38 @@ True iff ``state.gpus[gid_g].can_place_at(profile_p, i)`` — property-tested
 in ``tests/test_fabric.py`` on randomized heterogeneous fleets.  The fast
 paths must pick byte-identical (gid, index) spots to the scalar policies.
 
-The sweeps are written against an ``xp`` array module and instantiated
-with numpy, the reference's own JAX-free path.  (The reference also jits
-them with JAX when it is installed; this copy has no JAX, and a torch
-instantiation is future work.)  The placement engine turns the fabric on
-only at 128 or more GPUs in ``"auto"`` mode.
+Where the full sweeps run is ``device`` on ``FleetFabric``,
+``fleet_fabric`` and every ``fabric_*`` entry point:
+
+  * a torch device, ``"cuda"`` by default (resolved by
+    ``repro_torch.resolve_device``: ``"cuda"`` without a GPU raises, and
+    ``"cpu"`` runs the same ops on the host) — ``_feasible_all_torch`` /
+    ``_score_all_torch``, one chain of tensor ops per device kind over the
+    whole ``(G, P, I)`` slab, broadcast over the profile axis as
+    ``(G, P, I, M)`` where the reference ``vmap``s its jitted kernels (which
+    run on its accelerator whenever JAX is installed).  The mirror stays on
+    the host: each full sweep copies the occupancy, the per-row vectors and
+    the profile tables to the device once and brings the slabs back,
+    bit-identical to the numpy sweep (bools and int32s);
+  * ``None``, asked for explicitly — the numpy sweeps, written against an
+    ``xp`` array module and looped over profiles: the reference's own
+    JAX-free path.
+
+The single-row refresh after ``apply``/``unapply`` is numpy on the host
+whatever the device, as it is in the reference.  The placement engine
+turns the fabric on only at 128 or more GPUs in ``"auto"`` mode.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from ..obs import get_telemetry
 from .profiles import DeviceModel, Profile
 from .state import ClusterState, Placement, Workload
@@ -72,7 +90,8 @@ _NO_RANK = np.int32(32767)
 
 
 # ---------------------------------------------------------------------------
-# kernels (written against an ``xp`` array module; numpy here)
+# kernels (written against an ``xp`` array module; numpy here, and
+# broadcast over every profile at once in the torch sweeps below)
 # ---------------------------------------------------------------------------
 def _feasible_kernel(xp, occ, n_mem, me_used, me_cap, mem_sl, me_req, allowed, mask):
     """Feasibility of one profile at every (gpu, index).
@@ -170,6 +189,63 @@ def _score_all_np(occ, n_mem, n_gpu, extra_mem, mem_sl, cmp_sl):
     )
 
 
+def _feasible_all_torch(occ, n_mem, me_used, me_cap, mem_sl, me_req, allowed, mask):
+    """``_feasible_all_np`` as one chain of torch ops on the device the
+    arguments (tensors, all on one device) live on.
+
+    The profile axis is broadcast, not looped: spans are (P, I, M) and the
+    overlap test (G, P, I, M).  Returns the (G, P, I) bool slab as numpy.
+    """
+    idx = torch.arange(occ.shape[1], device=occ.device)
+    start = idx[None, :, None]  # (1, I, 1)
+    end = start + mem_sl[:, None, None]  # (P, I, 1)
+    span = (idx >= start) & (idx < end)  # (P, I, M)
+    overlap = (occ[:, None, None, :] & span).any(dim=-1)  # (G, P, I)
+    fits = end[None, ..., 0] <= n_mem[:, None, None]  # (G, P, I)
+    me_ok = me_used[:, None] + me_req[None, :] <= me_cap[:, None]  # (G, P)
+    feas = allowed & fits & ~overlap & me_ok[..., None] & mask[:, None, None]
+    return feas.cpu().numpy()
+
+
+def _score_all_torch(occ, n_mem, n_gpu, extra_mem, mem_sl, cmp_sl):
+    """``_score_all_np`` as one chain of torch ops on the arguments'
+    device: the post-placement occupancy of every (gpu, profile, index) is
+    one (G, P, I, M) tensor.  Returns (waste_delta, frag_runs_after), both
+    (G, P, I) int32 numpy slabs."""
+    idx = torch.arange(occ.shape[1], device=occ.device)
+    start = idx[None, :, None]
+    end = start + mem_sl[:, None, None]
+    span = (idx >= start) & (idx < end)  # (P, I, M)
+    post = occ[:, None, None, :] | span  # (G, P, I, M)
+
+    free = ~post
+    prev = torch.cat([torch.zeros_like(free[..., :1]), free[..., :-1]], dim=-1)
+    runs_after = (free & ~prev).sum(dim=-1).to(torch.int32)  # (G, P, I)
+
+    gpu_cover = torch.minimum(end[None, ..., 0], n_gpu[:, None, None]) - idx
+    waste_c = (gpu_cover - cmp_sl[None, :, None]).to(torch.int32)  # (G, P, I)
+
+    last = (n_gpu - 1).long()[:, None]  # (G, 1)
+    extra = (n_mem - 1).long()[:, None]
+    last_gpu = torch.take_along_dim(post, last[:, :, None, None], dim=3)[..., 0]
+    extra_pos = torch.take_along_dim(post, extra[:, :, None, None], dim=3)[..., 0]
+    stranded_after = last_gpu & ~extra_pos & extra_mem[:, None, None]
+    occ_last = torch.take_along_dim(occ, last, dim=1)[:, 0]
+    occ_extra = torch.take_along_dim(occ, extra, dim=1)[:, 0]
+    stranded_before = occ_last & ~occ_extra & extra_mem
+    waste_delta = (waste_c + stranded_after.to(torch.int32)
+                   - stranded_before[:, None, None].to(torch.int32))
+    return waste_delta.cpu().numpy(), runs_after.cpu().numpy()
+
+
+#: where a fabric's full sweeps run: a torch device, or None for numpy
+Device = Optional[Union[str, torch.device]]
+
+
+def _resolve(device: Device) -> Optional[torch.device]:
+    return None if device is None else resolve_device(device)
+
+
 # ---------------------------------------------------------------------------
 # per-device-kind profile tables
 # ---------------------------------------------------------------------------
@@ -222,14 +298,18 @@ class FleetFabric:
     ``apply`` / ``unapply`` as the caller mutates the backing state.
 
     Feasibility and scores for **all** (gpu, profile, index) triples are
-    computed by one batched kernel sweep (``feasible_all`` / ``scores_all``)
-    and cached; a placement changes exactly one row, so ``apply``/``unapply``
-    refresh that row alone (O(P·I·M) scalar work).  Spot picking is then a
+    computed by one batched sweep (``feasible_all`` / ``scores_all``) on
+    ``device`` (default ``"cuda"``; None: numpy; see the module docstring)
+    and cached; a
+    placement changes exactly one row, so ``apply``/``unapply`` refresh that
+    row alone (O(P·I·M) scalar work, numpy on the host).  Spot picking is then a
     pure O(G) reduction per workload — no per-candidate Python scanning and
     no kernel dispatch inside the sequential deploy loop.
     """
 
-    def __init__(self, state: ClusterState):
+    def __init__(self, state: ClusterState, device: Device = "cuda"):
+        #: where the full sweeps run (None: numpy on the host).
+        self.device = _resolve(device)
         self.gids: List[str] = state.ordered_gids()
         self.row_of: Dict[str, int] = {g: r for r, g in enumerate(self.gids)}
         devices: List[DeviceModel] = [state.gpus[g].device for g in self.gids]
@@ -407,20 +487,27 @@ class FleetFabric:
             self._waste, self._frag = self._sweep_scores()
         return self._waste, self._frag
 
+    def _on_device(self, *arrays):
+        """The arrays a sweep reads, copied to ``self.device`` (the one
+        place a sweep's inputs cross to the device), or the numpy arrays
+        themselves without one."""
+        if self.device is None:
+            return arrays
+        return tuple(torch.as_tensor(a, device=self.device) for a in arrays)
+
     def _sweep_feasible(self) -> np.ndarray:
         """One batched kernel sweep: (G, P_max, I) feasibility, all triples."""
         tel = get_telemetry()
         t0 = time.perf_counter() if tel.enabled else 0.0
         G = len(self.gids)
         out = np.zeros((G, self.P_max, self.M), bool)
+        rows = self._on_device(self.occ, self.n_mem, self.me_used, self.me_cap)
+        sweep = _feasible_all_np if self.device is None else _feasible_all_torch
         for kind in self.kinds:
             tab = self.tables[kind]
             row_mask = self.kind_mask(kind if len(self.tables) > 1 else None)
-            args = (
-                self.occ, self.n_mem, self.me_used, self.me_cap,
-                tab.mem_sl, tab.me_req, tab.allowed, row_mask,
-            )
-            got = _feasible_all_np(*args)
+            got = sweep(*rows, *self._on_device(
+                tab.mem_sl, tab.me_req, tab.allowed, row_mask))
             out[:, : got.shape[1], :] |= got
         if tel.enabled:
             tel.metrics.histogram(
@@ -437,14 +524,12 @@ class FleetFabric:
         G = len(self.gids)
         waste = np.zeros((G, self.P_max, self.M), np.int32)
         frag = np.zeros((G, self.P_max, self.M), np.int32)
+        per_row = self._on_device(self.occ, self.n_mem, self.n_gpu, self.extra_mem)
+        sweep = _score_all_np if self.device is None else _score_all_torch
         for kind in self.kinds:
             tab = self.tables[kind]
             rows = self.kind_mask(kind if len(self.tables) > 1 else None)
-            args = (
-                self.occ, self.n_mem, self.n_gpu, self.extra_mem,
-                tab.mem_sl, tab.cmp_sl,
-            )
-            w, f = _score_all_np(*args)
+            w, f = sweep(*per_row, *self._on_device(tab.mem_sl, tab.cmp_sl))
             P = w.shape[1]
             waste[rows, :P] = w[rows]
             frag[rows, :P] = f[rows]
@@ -600,19 +685,21 @@ class FleetFabric:
 # ---------------------------------------------------------------------------
 # persistent per-state mirror
 # ---------------------------------------------------------------------------
-def fleet_fabric(state: ClusterState) -> FleetFabric:
+def fleet_fabric(state: ClusterState, device: Device = "cuda") -> FleetFabric:
     """The cached ``FleetFabric`` mirror of ``state`` (built on first use).
 
     The mirror lives on the ClusterState instance and is row-synced against
     the placement lists on each call, so repeated engine deploys over a
     long-lived fleet (the online-trace hot path: one arrival per deploy) pay
     O(G) sync instead of an O(G·M) rebuild plus full kernel sweep.
-    ``clone()`` does not carry the mirror; shape changes trigger a rebuild.
+    ``clone()`` does not carry the mirror; shape changes trigger a rebuild,
+    and so does a ``device`` other than the cached mirror's (None: numpy).
     """
+    device = _resolve(device)
     fab = state.__dict__.get("_fabric_mirror")
-    if fab is not None and fab.sync(state):
+    if fab is not None and fab.device == device and fab.sync(state):
         return fab
-    fab = FleetFabric(state)
+    fab = FleetFabric(state, device=device)
     state.__dict__["_fabric_mirror"] = fab
     return fab
 
@@ -635,9 +722,9 @@ def _device_of(fab: FleetFabric, w: Workload) -> DeviceModel:
     return fab._table_for(w.device_kind or None).device
 
 
-def _sequential_deploy(state, workloads, pick, ordered=None):
+def _sequential_deploy(state, workloads, pick, device, ordered=None):
     """Shared sequential loop: pick a spot per workload, mirror into fabric."""
-    fab = fleet_fabric(state)
+    fab = fleet_fabric(state, device)
     if not fab.gids:  # empty fleet: scalar parity = everything pends
         for w in workloads:
             state.add_workload(w)
@@ -657,24 +744,26 @@ def _sequential_deploy(state, workloads, pick, ordered=None):
 
 
 def fabric_first_fit(
-    state: ClusterState, workloads: Sequence[Workload]
+    state: ClusterState, workloads: Sequence[Workload], device: Device = "cuda"
 ) -> List[Workload]:
     """Vectorized ``baselines.first_fit`` (identical placements)."""
     return _sequential_deploy(
         state,
         sorted(workloads, key=lambda w: w.wid),
         lambda fab, w, kind: fab.pick_first_fit(w.profile_id, kind),
+        device=device,
     )
 
 
 def fabric_load_balanced(
-    state: ClusterState, workloads: Sequence[Workload]
+    state: ClusterState, workloads: Sequence[Workload], device: Device = "cuda"
 ) -> List[Workload]:
     """Vectorized ``baselines.load_balanced`` (identical placements)."""
     return _sequential_deploy(
         state,
         list(workloads),  # arrival order
         lambda fab, w, kind: fab.pick_load_balanced(w.profile_id, kind),
+        device=device,
     )
 
 
@@ -686,7 +775,7 @@ def _size_sorted(fab: FleetFabric, workloads: Sequence[Workload]):
 
 
 def fabric_initial_deployment(
-    state: ClusterState, workloads: Sequence[Workload]
+    state: ClusterState, workloads: Sequence[Workload], device: Device = "cuda"
 ) -> List[Workload]:
     """Vectorized ``heuristic.initial_deployment`` (identical placements)."""
     return _sequential_deploy(
@@ -694,6 +783,7 @@ def fabric_initial_deployment(
         workloads,
         lambda fab, w, kind: fab.pick_max_utilization(w.profile_id, kind),
         ordered=_size_sorted,
+        device=device,
     )
 
 
@@ -701,7 +791,7 @@ def fabric_initial_deployment(
 # the frag_aware policy verbs (beyond-paper; Ting et al. scoring)
 # ---------------------------------------------------------------------------
 def fabric_frag_aware_deploy(
-    state: ClusterState, workloads: Sequence[Workload]
+    state: ClusterState, workloads: Sequence[Workload], device: Device = "cuda"
 ) -> List[Workload]:
     """Initial deployment minimizing (wastage, fragmentation) per placement."""
     return _sequential_deploy(
@@ -709,10 +799,11 @@ def fabric_frag_aware_deploy(
         workloads,
         lambda fab, w, kind: fab.pick_frag_aware(w.profile_id, kind),
         ordered=_size_sorted,
+        device=device,
     )
 
 
-def fabric_frag_aware_compact(state: ClusterState) -> None:
+def fabric_frag_aware_compact(state: ClusterState, device: Device = "cuda") -> None:
     """Vacate least-utilized GPUs with frag-aware one-shot respotting.
 
     Same outer loop as the baselines' compaction replay (Sec 5.2.2): walk
@@ -725,7 +816,7 @@ def fabric_frag_aware_compact(state: ClusterState) -> None:
     vacate rolls the state transaction back and replays the recorded mirror
     ops in reverse, so no candidate sweep ever rebuilds the fabric.
     """
-    fab = fleet_fabric(state)
+    fab = fleet_fabric(state, device)
     progress = True
     while progress:
         progress = False
@@ -801,7 +892,13 @@ def replay_fresh_deploy(
     return pending
 
 
-def fabric_frag_aware_reconfigure(state: ClusterState) -> List[Workload]:
+def fabric_frag_aware_reconfigure(
+    state: ClusterState, device: Device = "cuda"
+) -> List[Workload]:
     """Re-place everything from scratch with frag-aware scoring; keeps the
     current layout when the re-pack cannot fit everything (no evictions)."""
-    return replay_fresh_deploy(state, fabric_frag_aware_deploy, keep_on_pending=True)
+    return replay_fresh_deploy(
+        state,
+        functools.partial(fabric_frag_aware_deploy, device=device),
+        keep_on_pending=True,
+    )

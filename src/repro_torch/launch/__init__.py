@@ -1,2 +1,3 @@
 """Entry points: ``serve`` (continuous-batching engine), ``serve_cluster``
-(the autoscaled cluster demo) and ``calibrate`` (kernel calibration)."""
+(the autoscaled cluster demo), ``calibrate`` (kernel calibration), and the
+placement-only ``quickstart`` and ``compaction_demo``."""

@@ -8,9 +8,10 @@ Engine mode (one replica, real forward passes):
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 Cluster mode (placement only, no engine runs: the reference's model mix,
-counts and verbs on ``CLUSTER_DEVICE`` nodes, the H100 80GB's MIG geometry):
+counts and verbs on ``CLUSTER_DEVICE`` nodes, the H100 80GB's MIG geometry;
+the placement engine's fabric sweeps run on ``--device``):
   PYTHONPATH=src python -m repro_torch.launch.serve --cluster --nodes 4 \
-      --policy heuristic
+      --policy heuristic [--device cpu]
 
 An int8 KV cache is switched on through ``models.layers.set_kv_quant(True)``
 before ``main`` / ``run_engine``, as in the reference (no CLI switch).
@@ -77,7 +78,8 @@ def run_engine(args) -> Dict[str, Any]:
 
 
 def run_cluster(args) -> int:
-    srv = ClusterServer(n_nodes=args.nodes, device=CLUSTER_DEVICE, policy=args.policy)
+    srv = ClusterServer(n_nodes=args.nodes, device=CLUSTER_DEVICE, policy=args.policy,
+                        fabric_device=resolve_device(args.device))
     print(f"cluster: {args.nodes} nodes of {CLUSTER_DEVICE.name}, policy={args.policy}")
     # Scale-up wave (paper: initial deployment)
     for model, arch, n in (

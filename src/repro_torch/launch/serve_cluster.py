@@ -128,6 +128,7 @@ def run(args) -> dict:
         )),
         perf=PerfModel(calibration=TINY_ENGINE_RATES),
         engine_factory=make_engine,
+        fabric_device=dev,
         autoscale_window=TICK,
     )
 

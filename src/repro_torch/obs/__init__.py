@@ -1,21 +1,25 @@
 """repro_torch.obs — zero-dependency fleet telemetry (spans, metrics, exporters).
-A copy of the reference's ``obs`` package (its report renderer is not
-ported yet); metric names keep the ``repro_`` prefix, so both packages
-export the same exposition.
+A copy of the reference's ``obs`` package; metric names keep the
+``repro_`` prefix, so both packages export the same exposition.
 
-The control plane (engine verbs, placement fabric, serving cluster) is
-instrumented against a process-global :class:`Telemetry` handle.  The
-default handle is a **no-op**: seeded runs stay byte-identical and the
-instrumentation costs one global read plus one no-op call per site.  Opt in
-explicitly:
+The control plane (engine verbs, online/demand simulators, placement
+fabric, serving cluster) is instrumented against a process-global
+:class:`Telemetry` handle.  The default handle is a **no-op**: seeded runs
+stay byte-identical and the instrumentation costs one global read plus one
+no-op call per site.  Opt in explicitly:
 
     from repro_torch import obs
 
     tel = obs.enable()                  # install a live Telemetry
-    ... run engine verbs / the cluster server ...
+    ... run simulations / engine verbs / the cluster server ...
     print(obs.prometheus_text(tel.metrics))          # scrape-format dump
     obs.write_jsonl(tel.tracer.records(), "trace.jsonl")
     obs.disable()                       # restore the no-op default
+
+Render a JSONL trace afterwards:
+
+    python -m repro_torch.obs.report trace.jsonl      # latency table + timeline
+    python -m repro_torch.obs.report trace.jsonl --html t.html
 
 Layers (see the submodules for detail):
 
@@ -26,6 +30,8 @@ Layers (see the submodules for detail):
   math.
 * ``export``  — Prometheus text exposition and strict-JSON JSONL span/event
   dumps.
+* ``report``  — per-verb latency tables and an ASCII/HTML timeline of
+  migration windows and autoscale decisions.
 * ``host``    — host-contention guard for bench entrypoints (stale
   ``pytest``/bench processes, load average) -> ``contended`` flag.
 * ``profile`` — kernel calibration profiler: measures the

@@ -42,6 +42,8 @@ import itertools
 import time
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple, Union
 
+import torch
+
 from ..configs import get_config
 from ..core.autoscaler import Autoscaler, ModelLoad, ScaleDecision
 from ..core.engine import PlacementEngine
@@ -249,7 +251,10 @@ class ClusterServer:
     default; the class is device-model-agnostic (pass another
     ``DeviceModel``, e.g. ``tpu_profiles.TPU_V5E_POD``, the reference's
     default).  Attached engines run wherever their parameters live: the
-    server records placements and binds no engine to a MIG instance."""
+    server records placements and binds no engine to a MIG instance.  The
+    placement engine's fabric sweeps run on ``fabric_device`` (default
+    ``"cuda"``, raising without a GPU; ``"cpu"`` for the host's torch ops,
+    None for the numpy sweep)."""
 
     def __init__(
         self,
@@ -267,6 +272,7 @@ class ClusterServer:
         autoscale_window: float = 30.0,
         step_policy: Optional[StepPolicy] = None,
         on_execution_failure: str = "rollback",
+        fabric_device: Optional[Union[str, torch.device]] = "cuda",
     ):
         if on_execution_failure not in ("rollback", "resume"):
             raise ValueError(
@@ -284,6 +290,7 @@ class ClusterServer:
             commit=commit,
             cost_model=cost_model,
             plan_deploys=plan_deploys,
+            fabric_device=fabric_device,
         )
         self.engine.bytes_for = self._replica_bytes
         self.policy = self.engine.policy_name

@@ -13,6 +13,9 @@ Three groups of tests:
     footprint sizing, telemetry counters, and a served run whose tokens
     must be identical per request id;
   * the cluster launchers on the CPU.
+
+A server's fabric sweeps run on the card by default, so every server here
+asks for the CPU (``fabric_device="cpu"``, ``--device cpu``).
 """
 import dataclasses
 import functools
@@ -108,7 +111,7 @@ def test_replica_profiles_on_the_h100_at_the_chip_shape():
 
 @pytest.mark.parametrize("policy", POLICIES)
 def test_cluster_deploy_policies(policy):
-    srv = ClusterServer(n_nodes=4, policy=policy)
+    srv = ClusterServer(n_nodes=4, policy=policy, fabric_device="cpu")
     rep = srv.deploy("chat", "smollm-135m", n_replicas=6, max_batch=4, max_len=2048)
     assert len(rep.placed) == 6 and not rep.pending
     srv.state.validate()
@@ -119,7 +122,7 @@ def test_cluster_deploy_policies(policy):
 @pytest.mark.parametrize("device,big,small", [(H100_80GB, 14, 19), (TPU_V5E_POD, 3, 4)],
                          ids=["h100-80gb", "tpu-pod"])
 def test_cluster_compaction_saves_nodes(device, big, small):
-    srv = ClusterServer(n_nodes=6, device=device, policy="heuristic")
+    srv = ClusterServer(n_nodes=6, device=device, policy="heuristic", fabric_device="cpu")
     # fragment the cluster: deploy then retire interleaved replicas
     srv.deploy("a", "smollm-135m", 8, profile_id=big)
     srv.deploy("b", "smollm-135m", 4, profile_id=small)
@@ -137,7 +140,7 @@ def test_cluster_compaction_saves_nodes(device, big, small):
 def test_cluster_reconfigure_eviction_retires_ghosts():
     """A committed reconfigure that cannot re-place a replica must retire it
     from every server-side map (no ghost in routing/engines/footprints)."""
-    srv = ClusterServer(n_nodes=4, policy="heuristic")
+    srv = ClusterServer(n_nodes=4, policy="heuristic", fabric_device="cpu")
     srv.deploy("m", "smollm-135m", 3, profile_id=19)
     victim = sorted(srv.replicas)[0]
     srv.attach_engine(victim, object())
@@ -162,7 +165,7 @@ def test_cluster_reconfigure_eviction_retires_ghosts():
 
 
 def test_cluster_reconfigure_and_route():
-    srv = ClusterServer(n_nodes=8, policy="heuristic")
+    srv = ClusterServer(n_nodes=8, policy="heuristic", fabric_device="cpu")
     srv.deploy("m", "smollm-135m", 5, profile_id=19)
     rep = srv.reconfigure()
     assert rep.after.n_gpus <= rep.before.n_gpus
@@ -177,7 +180,7 @@ def _port_engine_pair(arch, seed=0):
 
 def test_cluster_end_to_end_serving():
     """Deploy 2 models, attach real engines, route + pump to completion."""
-    srv = ClusterServer(n_nodes=2, policy="heuristic")
+    srv = ClusterServer(n_nodes=2, policy="heuristic", fabric_device="cpu")
     mb1, p1 = _port_engine_pair("smollm-135m")
     mb2, p2 = _port_engine_pair("xlstm-125m")
     srv.deploy("chat", "smollm-135m", 2, profile_id=19)
@@ -198,7 +201,7 @@ def test_cluster_end_to_end_serving():
 
 
 def test_migration_prices_live_replicas_from_their_engine_cache():
-    srv = ClusterServer(n_nodes=2, policy="heuristic")
+    srv = ClusterServer(n_nodes=2, policy="heuristic", fabric_device="cpu")
     mb, p = _port_engine_pair("smollm-135m")
     srv.deploy("chat", "smollm-135m", 1, max_batch=2, max_len=32)
     wid = srv.replicas_of("chat")[0]
@@ -224,7 +227,7 @@ def snap(state):
 def _fragmented_server(**kw):
     """4 single-replica models, 2 retired -> compaction has real moves."""
     srv = ClusterServer(
-        4, device=A100_80GB,
+        4, device=A100_80GB, fabric_device="cpu",
         step_policy=StepPolicy(backoff_seconds=0.0), **kw,
     )
     srv._sleep = lambda s: None  # no real backoff sleeps in tests
@@ -313,14 +316,14 @@ class TestClusterStepMachine:
 
 class TestClusterFaultAPI:
     def test_route_raises_typed_error(self):
-        srv = ClusterServer(2, device=A100_80GB)
+        srv = ClusterServer(2, device=A100_80GB, fabric_device="cpu")
         with pytest.raises(NoReplicaError) as ei:
             srv.route("ghost-model")
         assert ei.value.model == "ghost-model"
         assert isinstance(ei.value, LookupError)  # old callers still work
 
     def test_submit_backlogs_and_deploy_flushes(self):
-        srv = ClusterServer(2, device=A100_80GB)
+        srv = ClusterServer(2, device=A100_80GB, fabric_device="cpu")
         assert srv.submit("m", object()) is None
         assert len(srv._backlog["m"]) == 1
         srv.deploy("m", "unused-arch", n_replicas=1, profile_id=9)
@@ -341,7 +344,7 @@ class TestClusterFaultAPI:
         assert srv.state.gpus[gid].health == "healthy"
 
     def test_fail_node_with_no_capacity_loses_replica(self):
-        srv = ClusterServer(1, device=A100_80GB)
+        srv = ClusterServer(1, device=A100_80GB, fabric_device="cpu")
         srv.deploy("m", "unused-arch", n_replicas=1, profile_id=9)
         gid = srv.state.gpu_of("m/r0")
         report = srv.fail_node(gid)
@@ -363,7 +366,8 @@ class _Pkg:
     Request: type
 
 
-PORT = _Pkg(ClusterServer, StepPolicy, tauto.Autoscaler, tauto.AutoscalerConfig, Request)
+PORT = _Pkg(functools.partial(ClusterServer, fabric_device="cpu"), StepPolicy,
+            tauto.Autoscaler, tauto.AutoscalerConfig, Request)
 REF = _Pkg(jcluster.ClusterServer, jcluster.StepPolicy, jauto.Autoscaler,
            jauto.AutoscalerConfig, JRequest)
 
@@ -571,7 +575,7 @@ def _node_counts(text):
 def test_serve_cluster_mode_node_counts_match_reference_cli(policy, capsys, monkeypatch):
     # the reference CLI places on its default TPU pod: give the port's the same nodes
     monkeypatch.setattr(serve, "CLUSTER_DEVICE", TPU_V5E_POD)
-    assert serve.main(["--cluster", "--nodes", "4", "--policy", policy]) == 0
+    assert serve.main(["--cluster", "--nodes", "4", "--policy", policy, "--device", "cpu"]) == 0
     got = capsys.readouterr().out
     monkeypatch.setattr(sys, "argv", ["serve", "--cluster", "--nodes", "4", "--policy", policy])
     assert jserve.main() == 0
@@ -583,7 +587,7 @@ def test_serve_cluster_mode_node_counts_match_reference_cli(policy, capsys, monk
 
 def test_serve_cluster_mode_defaults_to_h100_mig_nodes(capsys):
     ops.reset_launch_counts()
-    assert serve.main(["--cluster"]) == 0
+    assert serve.main(["--cluster", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert out.splitlines()[0] == "cluster: 4 nodes of H100-80GB, policy=heuristic"
     assert "deploy draft (xlstm-125m) x2: placed=2 pending=0" in out
