@@ -7,8 +7,8 @@ tree on ``device``.  Both trees share one layout, stacked per-group weights
 with a leading L dimension and weights ``(d_in, d_out)``, so each leaf is a
 plain copy: no transpose.  Every leaf of either tree must be matched with
 the same shape, or this raises.  Each leaf takes its dtype from the port's
-``param_specs`` (the config's dtype, or f32 for the f32 leaves of Mamba-2);
-bf16 leaves go through float32, which is exact.
+``param_specs`` (the config's dtype, or f32 for the f32 leaves of Mamba-2,
+xLSTM and the MoE router); bf16 leaves go through float32, which is exact.
 """
 from __future__ import annotations
 
@@ -20,13 +20,12 @@ import torch
 from .configs.base import ArchConfig
 from .device import resolve_device
 from .models.model_zoo import param_specs
-from .models.transformer import check_supported, torch_dtype
+from .models.transformer import torch_dtype
 
 __all__ = ["params_to_torch"]
 
 
 def params_to_torch(np_params: Dict[str, Any], cfg: ArchConfig, device="cuda"):
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     unmatched: List[str] = []

@@ -5,7 +5,15 @@ engine.  Counterpart of ``repro/launch/serve.py``.
 Engine mode (one replica, real forward passes):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+Every architecture of ``configs.ARCHS`` serves, at full width only where its
+weights fit the card.  Requests carry no extras here, as in the reference's
+CLI: pixtral-12b then serves text alone, and seamless-m4t-large-v2 attends to
+an all-zero cross-attention cache; a caller passes ``patch_embeds`` or
+``frames`` through ``Request.extras``.
 
 Cluster mode (placement only, no engine runs: the reference's model mix,
 counts and verbs on ``CLUSTER_DEVICE`` nodes, the H100 80GB's MIG geometry;

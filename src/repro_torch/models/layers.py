@@ -12,6 +12,7 @@ f32 scale per (token, head), as the reference's switch of the same name.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -22,6 +23,7 @@ from ..kernels import ops as kops
 from ..kernels.ref import quantize_kv
 
 Params = Dict[str, Any]
+_NEG = -1e30  # the reference's mask value
 
 #: int8 KV-cache quantization, read when a cache is built (non-ring GQA caches)
 _KV_QUANT = {"enabled": False}
@@ -106,6 +108,13 @@ def attention(
     new cache, this updates the given tensors in place: the new K/V rows are
     written (quantized for an int8 cache) and ``index`` advances by the
     number of tokens.
+
+    A sliding-window cache of exactly ``cfg.sliding_window`` rows is a ring:
+    decode writes at ``index % Smax`` and attends to every row once the ring
+    has wrapped (the decode kernel clamps the length to Smax).  A prefill of
+    ``s >= Smax`` tokens stores the last Smax rows of the block, rolled by
+    ``s % Smax``, as the reference does -- padding included, so a prompt
+    right-padded past the window loses real rows to the padding.
     """
     hd = cfg.head_dim_
     b, s, _ = x.shape
@@ -128,17 +137,26 @@ def attention(
         else:
             rows = ((cache["k"], k), (cache["v"], v))
         smax = cache["k"].shape[1]
+        ring = bool(cfg.sliding_window) and smax == cfg.sliding_window
         if idx.dim() == 1:
-            # ragged decode (s == 1): per-slot write position, clamped so an
-            # idle slot whose index has run past the end rewrites the last row
-            wr = idx.clamp(max=smax - 1).long()
+            # ragged decode (s == 1): per-slot write position; off the ring,
+            # clamped so an idle slot whose index has run past the end
+            # rewrites the last row
+            wr = (idx % smax if ring else idx.clamp(max=smax - 1)).long()
             bix = torch.arange(b, device=x.device)
             for dst, src in rows:
                 dst[bix, wr] = src[:, 0].to(dst.dtype)
+        elif ring and s >= smax:
+            # the last Smax rows of the block, rolled so that row t lands
+            # at t % Smax (a ring cache is never int8)
+            for dst, src in rows:
+                dst.copy_(torch.roll(src[:, -smax:], s % smax, dims=1))
         else:
             # uniform write of s rows at index (clamped to fit, like
-            # dynamic_update_slice); no host sync on the index
-            pos = idx.clamp(max=smax - s).long() + torch.arange(s, device=x.device)
+            # dynamic_update_slice; on the ring, one row at index % Smax);
+            # no host sync on the index
+            start = idx % smax if ring and s == 1 else idx.clamp(max=smax - s)
+            pos = start.long() + torch.arange(s, device=x.device)
             for dst, src in rows:
                 dst.index_copy_(1, pos, src.to(dst.dtype))
         if s > 1:
@@ -154,6 +172,105 @@ def attention(
             out = kops.decode_attention(q, cache["k"], cache["v"], length=idx + 1)
         idx.add_(s)
     return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+
+
+def cross_attention(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    kv_x: Optional[torch.Tensor] = None,
+    cache: Optional[Params] = None,
+) -> torch.Tensor:
+    """Cross-attention of the decoder over the encoder's states: the
+    reference's ``attention(..., kv_x=)``.  No RoPE.  With ``kv_x``
+    (B,Senc,d), K and V are projected from it and, where ``cache``
+    ({"k","v" (B,Senc,Hkv,Dh)} views) is given, written there in place
+    (prefill); without it they are read from ``cache`` (decode).  The
+    attention is flash, non-causal, with Sq != Sk."""
+    hd = cfg.head_dim_
+    b, s, _ = x.shape
+    q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
+    if kv_x is not None:
+        k = _split_heads(kv_x @ p["wk"], cfg.n_kv_heads, hd)
+        v = _split_heads(kv_x @ p["wv"], cfg.n_kv_heads, hd)
+        if cache is not None:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    else:
+        k, v = cache["k"], cache["v"]
+    out = kops.cross_attention(q, k, v)
+    return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V3): latent-compressed KV cache
+# ---------------------------------------------------------------------------
+def mla_attention(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    positions: torch.Tensor,
+    cache: Optional[Params] = None,
+) -> torch.Tensor:
+    """Multi-head Latent Attention.  The cache stores only the compressed
+    latent ``c_kv`` (B,Smax,kv_lora) and the shared rotary key ``k_pe``
+    (B,Smax,rope), written in place like ``attention``'s (no ring, no int8).
+
+    Without a cache, and at prefill, K and V are decompressed and attended
+    by flash (D = nope + rope, Dv = v_head_dim).  A decode step never
+    decompresses the cache: wkv_b's key half is folded into the query and
+    its value half applied after attending over the latents, in f32
+    einsums masked by ``arange(Smax) < index + 1`` -- the reference's
+    weight absorption, which is not a kernel there either."""
+    b, s, _ = x.shape
+    nope, rope_d, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+
+    q = apply_norm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
+    q = q.reshape(b, s, h, nope + rope_d)
+    q_nope, q_pe = q[..., :nope], q[..., nope:]
+
+    kv_a = x @ p["wkv_a"]
+    c_kv = apply_norm(p["kv_norm"], kv_a[..., :r])
+    sin, cos = rope_tables(positions, rope_d, cfg.rope_theta)
+    q_pe = apply_rope(q_pe, sin, cos)
+    k_pe = apply_rope(kv_a[..., r:][:, :, None, :], sin, cos)[:, :, 0]  # one shared head
+
+    if cache is not None:
+        idx = cache["index"]
+        c_all, pe_all = cache["c_kv"], cache["k_pe"]
+        smax = c_all.shape[1]
+        if idx.dim() == 1:  # ragged decode (s == 1)
+            wr = idx.clamp(max=smax - 1).long()
+            bix = torch.arange(b, device=x.device)
+            c_all[bix, wr] = c_kv[:, 0].to(c_all.dtype)
+            pe_all[bix, wr] = k_pe[:, 0].to(pe_all.dtype)
+        else:
+            pos = idx.clamp(max=smax - s).long() + torch.arange(s, device=x.device)
+            c_all.index_copy_(1, pos, c_kv.to(c_all.dtype))
+            pe_all.index_copy_(1, pos, k_pe.to(pe_all.dtype))
+        lim = (idx + s).expand(b)
+        idx.add_(s)
+    if cache is not None and s == 1:
+        # decode with weight absorption
+        wb = p["wkv_b"].reshape(r, h, nope + vh).float()
+        wb_k, wb_v = wb[..., :nope], wb[..., nope:]
+        q_eff = torch.einsum("bshn,rhn->bshr", q_nope.float(), wb_k)
+        scores = torch.einsum("bshr,btr->bhst", q_eff, c_all.float())
+        scores = scores + torch.einsum("bshd,btd->bhst", q_pe.float(), pe_all.float())
+        scores = scores / math.sqrt(nope + rope_d)
+        valid = torch.arange(smax, device=x.device)[None, :] < lim[:, None]
+        scores = scores.masked_fill(~valid[:, None, None, :], _NEG)
+        pr = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", pr, c_all.float())
+        out = torch.einsum("bshr,rhv->bshv", ctx, wb_v).to(x.dtype)
+    else:
+        # no cache / prefill: decompress K and V, attend over the fresh block
+        kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, nope + vh)
+        k = torch.cat([kv[..., :nope], k_pe[:, :, None, :].expand(b, s, h, rope_d)], dim=-1)
+        v = kv[..., nope:].contiguous()
+        out = kops.flash_attention(torch.cat([q_nope, q_pe], dim=-1), k, v, causal=True)
+    return out.reshape(b, s, h * vh) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

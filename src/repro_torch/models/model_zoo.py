@@ -14,11 +14,11 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
 from .ssm import CONV_K, mamba_dims, mlstm_dims, slstm_ff_width
-from .transformer import Model, check_supported, torch_dtype
+from .transformer import Model, torch_dtype
 
 Params = Dict[str, Any]
 
@@ -48,25 +48,69 @@ def _norm(d: int, kind: str, lead=()) -> Params:
     return p
 
 
-def _attn_block(cfg: ArchConfig, lead=()) -> Params:
-    d, hd = cfg.d_model, cfg.head_dim_
-    mlp = {"w_out": _dense(cfg.d_ff, d, lead)}
-    if cfg.mlp == "swiglu":
-        mlp["w_gate"] = _dense(d, cfg.d_ff, lead)
-        mlp["w_up"] = _dense(d, cfg.d_ff, lead)
+def _mlp(d: int, f: int, kind: str, lead=()) -> Params:
+    p = {"w_out": _dense(f, d, lead)}
+    if kind == "swiglu":
+        p["w_gate"] = _dense(d, f, lead)
+        p["w_up"] = _dense(d, f, lead)
     else:
-        mlp["w_in"] = _dense(d, cfg.d_ff, lead)
+        p["w_in"] = _dense(d, f, lead)
+    return p
+
+
+def _gqa(cfg: ArchConfig, lead=()) -> Params:
+    d, hd = cfg.d_model, cfg.head_dim_
     return {
+        "wq": _dense(d, cfg.n_heads * hd, lead),
+        "wk": _dense(d, cfg.n_kv_heads * hd, lead),
+        "wv": _dense(d, cfg.n_kv_heads * hd, lead),
+        "wo": _dense(cfg.n_heads * hd, d, lead),
+    }
+
+
+def _mla(cfg: ArchConfig, lead=()) -> Params:
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope_d, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq_a": _dense(d, cfg.q_lora_rank, lead),
+        "q_norm": _norm(cfg.q_lora_rank, "rmsnorm", lead),
+        "wq_b": _dense(cfg.q_lora_rank, h * (nope + rope_d), lead),
+        "wkv_a": _dense(d, cfg.kv_lora_rank + rope_d, lead),
+        "kv_norm": _norm(cfg.kv_lora_rank, "rmsnorm", lead),
+        "wkv_b": _dense(cfg.kv_lora_rank, h * (nope + vh), lead),
+        "wo": _dense(h * vh, d, lead),
+    }
+
+
+def _moe(cfg: ArchConfig, lead=()) -> Params:
+    """Router (an f32 leaf: stable softmax in a bf16 model), the experts
+    stacked (E, d, f), and the shared expert, a SwiGLU of width
+    moe_d_ff x n_shared_experts."""
+    d, f, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
+    p = {
+        "router": Leaf(lead + (d, e), "normal", 0.02, dtype=torch.float32),
+        "experts": {"w_gate": _dense(d, f, lead + (e,)), "w_up": _dense(d, f, lead + (e,)),
+                    "w_out": _dense(f, d, lead + (e,))},
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = _mlp(d, f * cfg.n_shared_experts, "swiglu", lead)
+    return p
+
+
+def _attn_block(cfg: ArchConfig, lead=(), kind: str = "attn") -> Params:
+    """An attention block ("attn": dense FFN of width d_ff; "moe": the MoE
+    layer), its attention GQA or MLA as the config says."""
+    d = cfg.d_model
+    p = {
         "ln1": _norm(d, cfg.norm, lead),
         "ln2": _norm(d, cfg.norm, lead),
-        "attn": {
-            "wq": _dense(d, cfg.n_heads * hd, lead),
-            "wk": _dense(d, cfg.n_kv_heads * hd, lead),
-            "wv": _dense(d, cfg.n_kv_heads * hd, lead),
-            "wo": _dense(cfg.n_heads * hd, d, lead),
-        },
-        "mlp": mlp,
+        "attn": _mla(cfg, lead) if cfg.attention == "mla" else _gqa(cfg, lead),
     }
+    if kind == "moe":
+        p["moe"] = _moe(cfg, lead)
+    else:
+        p["mlp"] = _mlp(d, cfg.d_ff, cfg.mlp, lead)
+    return p
 
 
 def _mamba2_block(cfg: ArchConfig, lead=()) -> Params:
@@ -125,18 +169,31 @@ def _slstm_block(cfg: ArchConfig, lead=()) -> Params:
 
 def param_specs(cfg: ArchConfig) -> Params:
     """The parameter tree with a ``Leaf`` per parameter; mirrors
-    ``repro.models.transformer.Model.init`` (groups split as ``Model._groups``)."""
+    ``repro.models.transformer.Model.init`` (groups split as ``Model._groups``).
+    DeepSeek's multi-token-prediction head (``mtp``) is in the tree, so it
+    bridges and counts, but no forward pass of the port runs it."""
+    d = cfg.d_model
     specs: Params = {
-        "embedding": Leaf((cfg.vocab_size, cfg.d_model), "normal", 0.02),
-        "ln_f": _norm(cfg.d_model, cfg.norm),
+        "embedding": Leaf((cfg.vocab_size, d), "normal", 0.02),
+        "ln_f": _norm(d, cfg.norm),
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = _dense(cfg.d_model, cfg.vocab_size)
-    block = {"attn": _attn_block, "mamba2": _mamba2_block, "mlstm": _mlstm_block,
-             "slstm": _slstm_block}
+        specs["lm_head"] = _dense(d, cfg.vocab_size)
+    if cfg.frontend:
+        specs["frontend"] = {"patch_proj": _dense(cfg.frontend_dim, d)}
+    block = {"attn": _attn_block, "moe": lambda c, lead: _attn_block(c, lead, "moe"),
+             "mamba2": _mamba2_block, "mlstm": _mlstm_block, "slstm": _slstm_block}
     specs["groups"] = [block[kind](cfg, (n,)) for kind, n in Model(cfg)._groups()]
     if cfg.shared_attn_every:
         specs["shared_attn"] = _attn_block(cfg)
+    if cfg.enc_dec:
+        specs["encoder"] = {"blocks": _attn_block(cfg, (cfg.n_encoder_layers,)),
+                            "ln_f": _norm(d, cfg.norm)}
+        specs["cross"] = {"ln": _norm(d, cfg.norm, (cfg.n_layers,)),
+                          "attn": _gqa(cfg, (cfg.n_layers,))}
+    if cfg.mtp_depth:
+        specs["mtp"] = {"proj": _dense(2 * d, d), "block": _attn_block(cfg),
+                        "ln": _norm(d, cfg.norm)}
     return specs
 
 
@@ -152,7 +209,6 @@ class ModelBundle:
     def init(self, generator: torch.Generator, device="cuda") -> Params:
         """Random weights drawn from ``generator`` (on its own device), each
         in its leaf's dtype on ``device``."""
-        check_supported(self.cfg)
         dev = resolve_device(device)
         dtype = torch_dtype(self.cfg)
 
@@ -166,7 +222,7 @@ class ModelBundle:
                 vals = torch.tensor(leaf.values, dtype=dt, device=dev)
                 return vals.expand(leaf.shape).clone()
             w = torch.randn(leaf.shape, generator=generator, device=generator.device)
-            return (w * leaf.scale).to(device=dev, dtype=dt)
+            return w.mul_(leaf.scale).to(device=dev, dtype=dt)  # one f32 draw at a time
 
         return tree_map(make, param_specs(self.cfg))
 
@@ -181,13 +237,26 @@ class ModelBundle:
     def param_count(self) -> int:
         return sum(t.numel() for t in tree_leaves(self.param_shapes()))
 
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: only the routed-in experts count)."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.n_experts:
+            return total
+        shapes = self.param_shapes()
+        expert_total = sum(t.numel() for g in shapes["groups"] if "moe" in g
+                           for t in tree_leaves(g["moe"]["experts"]))
+        active_frac = cfg.experts_per_token / cfg.n_experts
+        return int(total - expert_total * (1 - active_frac))
+
     # ---- steps --------------------------------------------------------------
     def prefill_fn(
         self, params: Params, batch: Dict[str, torch.Tensor], max_len: int
     ) -> Tuple[torch.Tensor, Params]:
         """Full-sequence forward that returns logits + a filled cache."""
         b, _ = batch["tokens"].shape
-        cache = self.model.init_cache(b, max_len, device=batch["tokens"].device)
+        enc_len = self.cfg.frontend_len if self.cfg.enc_dec else 0
+        cache = self.model.init_cache(b, max_len, enc_len, device=batch["tokens"].device)
         return self.model.forward(params, batch, cache=cache)
 
     def decode_fn(
@@ -201,6 +270,13 @@ class ModelBundle:
         positions = torch.as_tensor(index, device=tokens.device).expand(b, 1)
         return self.model.forward(params, {"tokens": tokens}, cache=cache,
                                   positions=positions)
+
+    def supports_shape(self, shape: ShapeConfig) -> bool:
+        """long_500k requires sub-quadratic decode: a recurrent state or a
+        sliding-window ring cache."""
+        if shape.name == "long_500k":
+            return self.cfg.supports_long_decode
+        return True
 
 
 def bundle(cfg: ArchConfig) -> ModelBundle:

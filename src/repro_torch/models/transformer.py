@@ -1,6 +1,8 @@
-"""Decoder-only LM over dense GQA attention, Mamba-2 and xLSTM (mLSTM /
-sLSTM) blocks, with Zamba2's weight-shared attention block: the trunk the
-served replica runs.
+"""Decoder-only and encoder-decoder LMs over heterogeneous blocks: GQA or
+MLA attention with a dense or MoE FFN, Mamba-2 and xLSTM (mLSTM / sLSTM),
+Zamba2's weight-shared attention block, a ViT patch frontend spliced over
+the leading positions and an audio encoder feeding cross-attention: the
+trunk the served replica runs.
 Counterpart of ``repro/models/transformer.py``.
 
 Layers of one kind are stacked with a leading L dimension, exactly as in the
@@ -23,7 +25,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from . import layers, ssm
+from ..kernels import ops as kops
+from . import layers, moe, ssm
 
 Params = Dict[str, Any]
 
@@ -34,37 +37,18 @@ def torch_dtype(cfg: ArchConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """The port covers dense GQA decoders, Mamba-2 hybrids with a shared
-    attention block and xLSTM; everything else is still only in the
-    reference package."""
-    missing = []
-    if cfg.attention != "gqa":
-        missing.append(f"attention={cfg.attention}")
-    if cfg.n_experts:
-        missing.append("MoE")
-    other = sorted(set(cfg.block_pattern) - {"attn", "mamba2", "mlstm", "slstm"})
-    if other:
-        missing.append(f"{'/'.join(other)} blocks")
-    if cfg.enc_dec:
-        missing.append("encoder-decoder")
-    if cfg.frontend:
-        missing.append(f"{cfg.frontend} frontend")
-    if cfg.sliding_window:
-        missing.append("sliding-window ring cache")
-    if cfg.mtp_depth:
-        missing.append("multi-token prediction")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported to repro_torch yet ({', '.join(missing)})"
-        )
-
-
 def _attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device, ragged: bool):
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
     cache = {"index": torch.zeros((batch,) if ragged else (), dtype=torch.int32, device=device)}
-    if layers.kv_quant_enabled():
-        # int8 K/V + an f32 scale per (token, head); the port has no ring cache
+    if cfg.attention == "mla":
+        cache["c_kv"] = torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device)
+        cache["k_pe"] = torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=dtype,
+                                    device=device)
+        return cache
+    # a sliding window bounds the cache to a ring of window rows
+    s = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    shape = (batch, s, cfg.n_kv_heads, cfg.head_dim_)
+    if layers.kv_quant_enabled() and not cfg.sliding_window:
+        # int8 K/V + an f32 scale per (token, head)
         for name in ("k", "v"):
             cache[name] = torch.zeros(shape, dtype=torch.int8, device=device)
             cache[f"{name}_s"] = torch.zeros(shape[:3], dtype=torch.float32, device=device)
@@ -76,7 +60,7 @@ def _attn_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device, ragged
 
 def _block_cache(kind: str, cfg: ArchConfig, batch: int, max_len: int, dtype, device,
                  ragged: bool):
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         return {"attn": _attn_cache(cfg, batch, max_len, dtype, device, ragged)}
     if kind == "mlstm":
         return {"mixer": ssm.init_mlstm_state(cfg, batch, device)}
@@ -99,24 +83,26 @@ def _layer(tree, i: int):
 
 
 def _apply_block(p: Params, x: torch.Tensor, kind: str, cfg: ArchConfig, positions, cache):
+    """One block, the cache updated in place.  The MoE's auxiliary loss is
+    dropped: ``forward`` returns (logits, cache) and no training path is
+    ported."""
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
-    if kind != "attn":  # recurrent mixers
+    if kind not in ("attn", "moe"):  # recurrent mixers
         fn = {"mamba2": ssm.mamba2_block, "mlstm": ssm.mlstm_block,
               "slstm": ssm.slstm_block}[kind]
         y, _ = fn(p["mixer"], h, cfg, cache["mixer"] if cache is not None else None)
         return x + y
-    x = x + layers.attention(p["attn"], h, cfg, positions,
-                             cache["attn"] if cache is not None else None)
+    attn = layers.mla_attention if cfg.attention == "mla" else layers.attention
+    x = x + attn(p["attn"], h, cfg, positions, cache["attn"] if cache is not None else None)
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    if kind == "moe":
+        return x + moe.apply_moe(p["moe"], h, cfg)[0]
     return x + layers.apply_mlp(p["mlp"], h, cfg.mlp)
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
-
-    def __post_init__(self):
-        check_supported(self.cfg)
 
     def _groups(self) -> Tuple[Tuple[str, int], ...]:
         """Layer runs, split at shared-attention boundaries for hybrids: the
@@ -141,10 +127,13 @@ class Model:
 
     # ---- cache init --------------------------------------------------------
     def init_cache(
-        self, batch: int, max_len: int, ragged: bool = False, device="cuda"
+        self, batch: int, max_len: int, enc_len: int = 0, ragged: bool = False,
+        device="cuda",
     ) -> Params:
         """ragged=True gives every batch slot its own cache index — the
-        continuous-batching decode state used by serving/engine.py."""
+        continuous-batching decode state used by serving/engine.py.  An
+        encoder-decoder's cache also holds the cross-attention K/V of
+        ``enc_len`` encoder states per layer under ``"cross"``."""
         cfg = self.cfg
         dev = resolve_device(device)
         dtype = torch_dtype(cfg)
@@ -155,24 +144,47 @@ class Model:
         if cfg.shared_attn_every:
             cache["shared"] = _stack(
                 self.n_shared_apps, _block_cache("attn", cfg, batch, max_len, dtype, dev, ragged))
+        if cfg.enc_dec:
+            shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.head_dim_)
+            cache["cross"] = {name: torch.zeros(shape, dtype=dtype, device=dev)
+                              for name in ("k", "v")}
         return cache
 
-    # ---- public entry point ------------------------------------------------
-    def forward(
-        self,
-        params: Params,
-        batch: Dict[str, torch.Tensor],
-        cache: Optional[Params] = None,
-        positions: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, Optional[Params]]:
-        """Returns (f32 logits (B,S,V), cache).  The cache is updated in place
-        and returned for symmetry with the reference's functional API."""
+    # ---- embedding + frontends ----------------------------------------------
+    def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Token embeddings; a VLM's projected patch embeddings replace the
+        first min(n_patches, S) positions."""
+        x = layers.embed(params["embedding"], batch["tokens"])
+        if self.cfg.frontend == "vit" and "patch_embeds" in batch:
+            pe = _project(batch["patch_embeds"], params["frontend"]["patch_proj"])
+            npatch = min(pe.shape[1], x.shape[1])
+            x = torch.cat([pe[:, :npatch].to(x.dtype), x[:, npatch:]], dim=1)
+        return x
+
+    def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """The audio encoder over precomputed frame embeddings (a stub
+        frontend): non-causal attention blocks without RoPE, then ln_f."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        if positions is None:
-            positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        x = layers.embed(params["embedding"], tokens)
+        h = _project(frames, params["frontend"]["patch_proj"]) if cfg.frontend else frames
+        x = h.to(torch_dtype(cfg))
+        hd = cfg.head_dim_
+        blocks = params["encoder"]["blocks"]
+        b, s, _ = x.shape
+        for i in range(cfg.n_encoder_layers):
+            bp = _layer(blocks, i)
+            hh = layers.apply_norm(bp["ln1"], x, cfg.norm)
+            q = (hh @ bp["attn"]["wq"]).reshape(b, s, cfg.n_heads, hd)
+            k = (hh @ bp["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+            v = (hh @ bp["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+            a = kops.flash_attention(q, k, v, causal=False)
+            x = x + a.reshape(b, s, cfg.n_heads * hd) @ bp["attn"]["wo"]
+            hh = layers.apply_norm(bp["ln2"], x, cfg.norm)
+            x = x + layers.apply_mlp(bp["mlp"], hh, cfg.mlp)
+        return layers.apply_norm(params["encoder"]["ln_f"], x, cfg.norm)
+
+    # ---- decoder trunks ------------------------------------------------------
+    def _trunk(self, params: Params, x: torch.Tensor, positions, cache) -> torch.Tensor:
+        cfg = self.cfg
         done, shared_ct = 0, 0
         for gi, (kind, count) in enumerate(self._groups()):
             gp = params["groups"][gi]
@@ -186,6 +198,56 @@ class Model:
                 sc = _layer(cache["shared"], shared_ct) if cache is not None else None
                 x = _apply_block(params["shared_attn"], x, "attn", cfg, positions, sc)
                 shared_ct += 1
+        return x
+
+    def _trunk_encdec(self, params: Params, x: torch.Tensor, positions, cache,
+                      enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+        """Decoder layers with interleaved cross-attention.  With ``enc_out``
+        (prefill, or no cache) the cross K/V are computed from it and, given
+        a cache, written there; without it (decode) they are read from the
+        cache."""
+        cfg = self.cfg
+        gp, cross = params["groups"][0], params["cross"]
+        for i in range(cfg.n_layers):
+            bc = _layer(cache["groups"][0], i) if cache is not None else None
+            x = _apply_block(_layer(gp, i), x, "attn", cfg, positions, bc)
+            cp = _layer(cross, i)
+            h = layers.apply_norm(cp["ln"], x, cfg.norm)
+            cc = _layer(cache["cross"], i) if cache is not None else None
+            x = x + layers.cross_attention(cp["attn"], h, cfg, enc_out, cc)
+        return x
+
+    # ---- public entry point ------------------------------------------------
+    def forward(
+        self,
+        params: Params,
+        batch: Dict[str, torch.Tensor],
+        cache: Optional[Params] = None,
+        positions: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Optional[Params]]:
+        """Returns (f32 logits (B,S,V), cache).  The cache is updated in place
+        and returned for symmetry with the reference's functional API.
+        ``batch`` holds "tokens" and, at prefill, a VLM's "patch_embeds"
+        (B,n_patches,frontend_dim) or an encoder-decoder's "frames"
+        (B,frontend_len,frontend_dim)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        x = self._embed_inputs(params, batch)
+        if cfg.enc_dec:
+            enc_out = self._encode(params, batch["frames"]) if "frames" in batch else None
+            x = self._trunk_encdec(params, x, positions, cache, enc_out)
+        else:
+            x = self._trunk(params, x, positions, cache)
         x = layers.apply_norm(params["ln_f"], x, cfg.norm)
         head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
         return layers.lm_logits(head, x, cfg.tie_embeddings), cache
+
+
+def _project(inputs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """inputs @ w in the promoted dtype of the two, as jnp's matmul computes
+    f32 inputs against bf16 weights."""
+    dt = torch.promote_types(inputs.dtype, w.dtype)
+    return inputs.to(dt) @ w.to(dt)

@@ -118,12 +118,14 @@ def replica_footprint_parts(
 ) -> Tuple[int, int]:
     """(weights bytes, reserved KV-cache bytes) of one serving replica:
     bf16 params + ragged decode cache for (max_batch, max_len), sized on the
-    ``meta`` device.  A family the port does not serve yet (the
-    encoder-decoder's cross-attention cache among them) raises
-    ``NotImplementedError`` rather than return a wrong size."""
+    ``meta`` device: a sliding-window ring, MLA's latent cache and an
+    encoder-decoder's cross-attention K/V over ``frontend_len`` frames
+    included."""
     mb = bundle(get_config(arch))
     params_b = 2 * mb.param_count()  # bf16 weights
-    cache = mb.model.init_cache(max_batch, max_len, ragged=True, device="meta")
+    cfg = mb.cfg
+    enc_len = cfg.frontend_len if cfg.enc_dec else 0
+    cache = mb.model.init_cache(max_batch, max_len, enc_len, ragged=True, device="meta")
     return int(params_b), live_kv_bytes(cache)
 
 

@@ -38,6 +38,9 @@ class Request:
     prompt: List[int]
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
+    #: extra prefill inputs (e.g. patch_embeds for VLM, frames for enc-dec):
+    #: tensors or numpy arrays, moved to the engine's device at prefill
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -96,8 +99,9 @@ class Engine:
         self.cfg = cfg
         self.device = next(tree_leaves(params)).device
         self._recurrent = bundle.cfg.is_recurrent
+        enc_len = bundle.cfg.frontend_len if bundle.cfg.enc_dec else 0
         self.cache = self.model.init_cache(
-            cfg.max_slots, cfg.max_len, ragged=True, device=self.device
+            cfg.max_slots, cfg.max_len, enc_len, ragged=True, device=self.device
         )
         self.queue: Deque[Request] = collections.deque()
         self.slots: List[Optional[_SlotState]] = [None] * cfg.max_slots
@@ -159,7 +163,8 @@ class Engine:
         pad = _next_pow2(plen) if (self.cfg.bucket_prefill and not self._recurrent) else plen
         toks = np.zeros((1, pad), np.int64)
         toks[0, :plen] = req.prompt
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        batch = {"tokens": torch.from_numpy(toks).to(self.device),
+                 **{k: torch.as_tensor(v).to(self.device) for k, v in req.extras.items()}}
         logits, prefix = self.bundle.prefill_fn(self.params, batch, max_len=self.cfg.max_len)
         # first generated token: logits at the LAST TRUE prompt position
         first = int(torch.argmax(logits[0, plen - 1, :]))

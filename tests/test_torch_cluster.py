@@ -73,7 +73,8 @@ POLICIES = ["heuristic", "mip", "first_fit", "load_balanced"]
 DEVICES = {"TPUv5e-16x16-pod": (TPU_V5E_POD, J_TPU), "A100-80GB": (A100_80GB, J_A100),
            "H100-96GB": (H100_96GB, J_H100_96)}
 SIZEABLE = ["smollm-135m", "chatglm3-6b", "zamba2-1.2b", "xlstm-125m",
-            "mistral-large-123b", "nemotron-4-340b"]
+            "mistral-large-123b", "nemotron-4-340b", "mixtral-8x7b", "deepseek-v3-671b",
+            "pixtral-12b", "seamless-m4t-large-v2"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -470,12 +471,6 @@ def test_replica_footprint_matches_reference(arch, kv_quant):
     finally:
         layers.set_kv_quant(False)
         jlayers.set_kv_quant(False)
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "seamless-m4t-large-v2", "mixtral-8x7b"])
-def test_unported_family_sizing_raises(arch):
-    with pytest.raises(NotImplementedError):
-        replica_footprint_parts(arch, 8, 8192)
 
 
 def _counters(registry):

@@ -395,6 +395,40 @@ def test_flash_attention_cuda_bf16_bodies(cuda, b, sq, sk, hq, hkv, d, dv, causa
     np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()), **_tol("bfloat16"))
 
 
+def _chip_smoke():
+    """chip_smoke.py at the repository's root, whose phase 3 checks of phase
+    10's kernel shapes the test below runs."""
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b", "pixtral-12b",
+                                  "seamless-m4t-large-v2"])
+def test_family_shapes_hold_to_f32_plain(cuda, arch):
+    """Flash and the bf16 decode at the shapes the family's engine gives them
+    (Mixtral's window at S 4096 and 8192 and decode over a wrapped ring of
+    4096 rows, DeepSeek's MLA prefill at D 192 / Dv 128, Seamless's encoder
+    and cross-attention at Sq 1 and 256), held to the plain version in f32
+    by chip_smoke.py's row-scaled check, each with a planted control that
+    must fail it."""
+    from repro_torch.kernels import decode_attention as dec, flash_attention as fa
+
+    smoke = _chip_smoke()
+    gen = torch.Generator(device=cuda).manual_seed(17)
+
+    def rn(shape, dt):
+        return torch.randn(shape, generator=gen, device=cuda).to(dt)
+
+    smoke.check_family_shapes(torch, ops, tref, fa, dec, rn, archs=[arch])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("split", [16, 64, 128])

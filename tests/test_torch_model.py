@@ -185,10 +185,3 @@ def test_other_dense_archs_match_reference(name):
     dj, _ = jmb.decode_fn(jparams, cj, jnp.asarray(nxt, jnp.int32), jnp.int32(7))
     dt, _ = tmb.decode_fn(tparams, ct, torch.from_numpy(nxt), torch.tensor(7))
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), **TOL)
-
-
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "deepseek-v3-671b",
-                                  "seamless-m4t-large-v2", "pixtral-12b"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError):
-        tbundle(t_reduced(t_get_config(name))).model
