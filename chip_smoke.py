@@ -87,7 +87,27 @@ Phases, each of which passes or raises (any failure exits non-zero):
      family against f32 on the CPU as in phase 5 at the FAMILY_VS_CPU cuts;
      phase 3 holds the kernels at these shapes and phase 6's ``kernels``
      line carries their times under ``families``; printed as a
-     ``{"families": ...}`` JSON line.
+     ``{"families": ...}`` JSON line;
+ 11. training (``phase_training``): (a) flash attention and the SSD scan
+     under autograd, their ``torch.autograd.Function``s (the kernel forward,
+     one launch under the body the shape selects; a plain PyTorch backward)
+     against the plain versions' autograd in f32 on the same values, output
+     and every gradient, f32 and bf16, at TRAIN_FLASH_CASES and
+     TRAIN_SSD_CASE, with a planted control (a window one row short must
+     fail); (b) smollm-135m at full width and depth, bf16, trained for 20
+     steps through ``launch/train.py``'s loop (TRAIN_ARGS), launch counts
+     zeroed just before and read just after: the loss must fall (the
+     launcher's own first-tenth vs last-tenth test), flash launched
+     layers x steps x 2 (block remat recomputes each forward) times, all
+     through the tensor cores, no decode or SSD launch; (c) one f32 step's
+     loss and gradients on the card against the CPU at the TRAIN_VS_CPU
+     cuts (smollm-135m and zamba2-1.2b at full width, depth cut), and the
+     bf16 loss of the same step against the f32 one; (d) the same for every
+     architecture at ``reduced()``; (b) also times zamba2-1.2b's training
+     step (6 Mamba-2 layers, TRAIN_ZAMBA2) with its SSD and flash launches
+     counted; printed as a ``{"training": ...}`` JSON line, and the
+     ``kernels`` line counts (b)'s launches under
+     ``launches_by_path["training"]``.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing any
 result.
@@ -1874,6 +1894,49 @@ def family_kernel_times(torch, F, ref, fa, dec, families):
     return flash, decode
 
 
+def time_ssd_case(torch, ref, _build, ssd, gen, b, s, h, p, n, simt: bool = True) -> dict:
+    """ssd_scan on bf16 x (b,s,h,p), B/C (b,s,n), f32 dt, A and a zero
+    initial state: the kernel against its plain version, their times, the
+    device time and the bound; with ``simt``, the CUDA-core body at the same
+    shape too."""
+    per_set = (b * s * h * p * 2 * 2 + b * s * h * 4 + h * 4 + b * s * n * 2 * 2
+               + b * h * p * n * 4 * 2)  # x, y; dt; A; B, C; h0, hT
+    n_sets = copies_past_l2(per_set)
+    sets = [ssd_inputs(torch, gen, torch.bfloat16, b, s, h, p, n)
+            + (torch.zeros((b, h, p, n), device="cuda"),) for _ in range(n_sets)]
+    tile = 64  # the kernel's time tile
+    pairs = sum(c * (c + 1) // 2 for c in [tile] * (s // tile) + ([s % tile] if s % tile else []))
+    # C.B per chunk pair (shared by the heads), w @ x, and per step C h^T plus
+    # the state update (2 P N each), per head
+    flops = b * (2 * pairs * n + h * (2 * pairs * p + 4 * s * p * n))
+    y, hT = ssd.ssd_scan_cuda(*sets[0])
+    wy, wh = ref.ssd_scan_ref(*sets[0])
+
+    def ssd_simt(x, dt, A, Bm, Cm, h0):  # the CUDA-core body the shape does not select
+        yo, ho = torch.empty_like(x), torch.empty_like(h0)
+        check_rc(_build.load(ssd.NAME, ssd._SIGNATURES).ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            h0.data_ptr(), yo.data_ptr(), ho.data_ptr(), 1, b, s, h, p, n, x.stride(0),
+            x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+            torch.cuda.current_stream().cuda_stream))
+        return yo
+    out = dict(
+        shape=f"x({b},{s},{h},{p}) bf16, B/C({b},{s},{n}) bf16, dt f32, h0 zeros f32",
+        max_abs_err=max(max_err(y, wy), max_err(hT, wh)),
+        ms=time_ms(lambda *a: ssd.ssd_scan_cuda(*a), sets),
+        plain_ms=time_ms(lambda *a: ref.ssd_scan_ref(*a), sets, iters=3),
+        library_ms=None,  # no single PyTorch call computes a selective scan
+        body=ssd.body(*sets[0][:1], *sets[0][3:5]),
+        **(simt_times(ssd_simt, ("ssd_kernel<",), wy, sets) if simt else {}),
+        **device_times(lambda *a: ssd.ssd_scan_cuda(*a),
+                       ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel",
+                        "ssd_kernel"), None, sets),
+        **bound(per_set, flops),
+    )
+    del sets
+    return out
+
+
 def phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs):
     """Each kernel at its serving path's shapes.  The attention kernels run on
     two paths with different head layouts, so their entries also carry the
@@ -1950,46 +2013,13 @@ def phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs):
     # --- SSD scan at the longest zamba2 prefill of the run ------------------
     h, p, n = zcfg.ssm_heads, zcfg.ssm_expand * zcfg.d_model // zcfg.ssm_heads, zcfg.ssm_state
     s = max(len(r.prompt) for r in z_reqs)  # recurrent prefills run at their exact length
-    b = 1
-    per_set = (b * s * h * p * 2 * 2 + b * s * h * 4 + h * 4 + b * s * n * 2 * 2
-               + b * h * p * n * 4 * 2)  # x, y; dt; A; B, C; h0, hT
-    n_sets = copies_past_l2(per_set)
-    sets = [ssd_inputs(torch, gen, bf, b, s, h, p, n)
-            + (torch.zeros((b, h, p, n), device="cuda"),) for _ in range(n_sets)]
-    tile = 64  # the kernel's time tile
-    pairs = sum(c * (c + 1) // 2 for c in [tile] * (s // tile) + ([s % tile] if s % tile else []))
-    # C.B per chunk pair (shared by the heads), w @ x, and per step C h^T plus
-    # the state update (2 P N each), per head
-    flops = b * (2 * pairs * n + h * (2 * pairs * p + 4 * s * p * n))
-    y, hT = ssd.ssd_scan_cuda(*sets[0])
-    wy, wh = ref.ssd_scan_ref(*sets[0])
-
-    def ssd_simt(x, dt, A, Bm, Cm, h0):  # the CUDA-core body the shape does not select
-        yo, ho = torch.empty_like(x), torch.empty_like(h0)
-        check_rc(_build.load(ssd.NAME, ssd._SIGNATURES).ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            h0.data_ptr(), yo.data_ptr(), ho.data_ptr(), 1, b, s, h, p, n, x.stride(0),
-            x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
-            torch.cuda.current_stream().cuda_stream))
-        return yo
     entries.append(dict(
         name="ssd_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:81",
-        shape=f"x({b},{s},{h},{p}) bf16, B/C({b},{s},{n}) bf16, dt f32, h0 zeros f32",
         launches=z_counts.get("ssd_scan", 0), launches_path=ZAMBA2,
-        max_abs_err=max(max_err(y, wy), max_err(hT, wh)),
-        ms=time_ms(lambda *a: ssd.ssd_scan_cuda(*a), sets),
-        plain_ms=time_ms(lambda *a: ref.ssd_scan_ref(*a), sets, iters=3),
-        library_ms=None,  # no single PyTorch call computes a selective scan
-        body=ssd.body(*sets[0][:1], *sets[0][3:5]),
-        **simt_times(ssd_simt, ("ssd_kernel<",), wy, sets),
-        **device_times(lambda *a: ssd.ssd_scan_cuda(*a),
-                       ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel",
-                        "ssd_kernel"), None, sets),
-        **bound(per_set, flops),
+        **time_ssd_case(torch, ref, _build, ssd, gen, 1, s, h, p, n),
     ))
-    del sets
 
     # the int8 decode reads about half the bf16 decode's bytes at the same lengths
     entries[2]["device_ms_vs_bf16_decode"] = entries[2]["device_ms"] / entries[1]["device_ms"]
@@ -1997,6 +2027,412 @@ def phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs):
         e["launches_by_path"] = {k: v[e["name"]] for k, v in by_path.items()}
         e["kernel_ms"] = e["ms"]
     return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+#: (a) the autograd Functions at the training paths' shapes: label ->
+#: (b, sq, sk, hq, hkv, d, dv, causal, window).  smollm-135m's step (batch 8
+#: x 512), zamba2-1.2b's shared attention block, Mixtral's heads under a
+#: window of 128, DeepSeek-V3's MLA (D 192 = nope 128 + rope 64, Dv 128)
+TRAIN_FLASH_CASES = {
+    SMOLLM: (8, 512, 512, 9, 3, 64, 64, True, None),
+    "zamba2-1.2b shared attention": (2, 512, 512, 32, 32, 64, 64, True, None),
+    "windowed (Mixtral heads)": (1, 512, 512, 32, 8, 128, 128, True, 128),
+    "MLA (DeepSeek-V3)": (1, 512, 512, 128, 128, 192, 128, True, None),
+}
+#: the SSD scan at zamba2-1.2b's training shape: (b, s, h, p, n)
+TRAIN_SSD_CASE = (2, 512, 32, 128, 64)
+#: f32 Function vs plain autograd: max error over the largest magnitude of
+#: each output and gradient.  The forward kernel and the plain forward sum
+#: in other orders (~1e-6), and the backward is plain in both
+TRAIN_F32_REL = 1e-4
+#: (b) smollm-135m at full width and depth, bf16, through launch/train.py's
+#: loop: batch 8 x 512, the launcher's default 100 steps at its default lr
+#: of 3e-4 (AdamW's 100-step warmup).  At the full vocabulary of 49152 the
+#: loss starts at ln V plus half the random logits' variance (~10.91) and
+#: the first tens of steps move it by ~0.03 against a step-to-step noise of
+#: ~0.01; in 20 or 40 steps at lr 6e-3 to 3e-2 it rose (the chip runs
+#: in PERF.md), so the run is long enough for the first and last tenths'
+#: means (10 steps each) to tell a fall from noise
+TRAIN_ARGS = ["--arch", SMOLLM, "--steps", "100", "--batch", "8", "--seq", "512",
+              "--log-every", "10", "--device", "cuda"]
+#: (b) also times zamba2-1.2b's training step at full width, depth cut to 6
+#: Mamba-2 layers and one application of the shared block, bf16, batch
+#: 2 x 512, remat: (overrides, batch, seq, steps)
+TRAIN_ZAMBA2 = (dict(n_layers=6, shared_attn_every=6), 2, 512, 5)
+#: (c) card vs CPU on one fixed batch, f32, the same weights: arch ->
+#: (config overrides, batch, seq).  smollm-135m cut to 4 of 30 layers;
+#: zamba2-1.2b to 2 Mamba-2 layers and one application of the shared block
+TRAIN_VS_CPU = {
+    SMOLLM: (dict(n_layers=4), 2, 256),
+    ZAMBA2: (dict(n_layers=2, shared_attn_every=2), 2, 256),
+}
+#: card f32 vs CPU f32 limits of (c) and (d): loss (relative), the gradients'
+#: global norm (relative) and each gradient leaf's max error over its max;
+#: the card's bf16 loss of the same step against its f32 loss
+TRAIN_LOSS_REL, TRAIN_GNORM_REL, TRAIN_LEAF_REL, TRAIN_BF16_REL = 1e-4, 1e-3, 1e-3, 2e-2
+TRAIN_PHASE_TARGET_S = 150.0
+
+
+def rel_err(got, want) -> float:
+    return max_err(got, want) / max(float(want.float().abs().max()), 1e-30)
+
+
+def check_grad_pair(label: str, got, want, dtype_name: str) -> float:
+    """One output or gradient of a Function against the plain version's
+    autograd in f32 on the same values: f32 within TRAIN_F32_REL of the
+    largest magnitude, bf16 within FAMILY_ROW_TOL row-scaled
+    (row_scaled_err, which forgives the rounding to bf16)."""
+    if dtype_name == "float32":
+        r, tol, kind = rel_err(got, want), TRAIN_F32_REL, "rel"
+    else:
+        r, tol, kind = row_scaled_err(got, want), FAMILY_ROW_TOL, "row-scaled"
+    log(f"    {label}: max_abs_err={max_err(got, want):.3e} {kind}={r:.3e} tol={tol:g} "
+        f"{'ok' if r <= tol else 'FAIL'}")
+    if not r <= tol:
+        raise AssertionError(f"{label}: the autograd Function disagrees with plain autograd")
+    return r
+
+
+def grad_leaves(torch, tensors):
+    """f32 copies of ``tensors`` (the same values) that require grad."""
+    return [t.detach().float().requires_grad_() for t in tensors]
+
+
+def autograd_flash_case(torch, ops, ref, fa, gen, label, dtype, case):
+    """ops.flash_attention under autograd (FlashAttention: the kernel
+    forward, counted once under its body; the plain chunked backward) against
+    attention_ref's autograd in f32 on the same values; the forward kernel's
+    and the plain backward's times."""
+    b, sq, sk, hq, hkv, d, dv, causal, window = case
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    shapes = ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, dv))
+    q, k, v = [torch.randn(s, generator=gen, device="cuda").to(dtype).requires_grad_()
+               for s in shapes]
+    dout = torch.randn((b, sq, hq, dv), generator=gen, device="cuda").to(dtype)
+    want_body = fa.body(q, k, v)
+    before = ops.launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    got = (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    if type(out.grad_fn).__name__ != "FlashAttentionBackward":
+        raise AssertionError(f"flash {label}: no FlashAttention node ({out.grad_fn})")
+    for n in ("flash_attention", f"flash_attention.{want_body}"):
+        require(after, n, after.get(n, 0) == before.get(n, 0) + 1, f"{before.get(n, 0) + 1}")
+    pq, pk, pv = grad_leaves(torch, (q, k, v))
+    pout = ref.attention_ref(pq, pk, pv, causal, window)
+    want = (pout.detach(),) + torch.autograd.grad(pout, (pq, pk, pv), dout.float())
+    log(f"  flash {label} {name} q{shapes[0]} k{shapes[1]} v{shapes[2]} "
+        f"{'causal' if causal else 'non-causal'}{f' window {window}' if window else ''} "
+        f"({want_body}):")
+    errs = {part: check_grad_pair(part, g, w, name)
+            for part, g, w in zip(("out", "dq", "dk", "dv"), got, want)}
+    res = dict(shape=f"q{shapes[0]} k{shapes[1]} v{shapes[2]} {name}", body=want_body,
+               errors=errs)
+    if window and name == "float32":  # the planted control: a window one row short
+        sq_, sk_, sv_ = grad_leaves(torch, (q, k, v))
+        short = ref.attention_ref(sq_, sk_, sv_, causal, window - 1)
+        planted = (short.detach(),) + torch.autograd.grad(short, (sq_, sk_, sv_),
+                                                           dout.float())
+        r = max(rel_err(g, p) for g, p in zip(got, planted))
+        log(f"    planted control, window {window - 1}: rel={r:.3e} "
+            f"{'caught' if r > TRAIN_F32_REL else 'MISSED'}")
+        if r <= TRAIN_F32_REL:
+            raise AssertionError(f"flash {label}: the check passes a window one row short")
+        res["planted_rel"] = r
+    qd, kd, vd = q.detach(), k.detach(), v.detach()
+    res["fwd_kernel_ms"] = time_ms(lambda: fa.flash_attention_cuda(qd, kd, vd, causal, window),
+                                   [()], iters=5)
+    res["bwd_plain_ms"] = time_ms(lambda: ref.attention_bwd_ref(qd, kd, vd, dout, causal, window),
+                                  [()], iters=5)
+    return res
+
+
+def autograd_ssd_case(torch, ops, ref, ssd, gen, dtype, case):
+    """ops.ssd_scan under autograd (SSDScan) on strided views of one conv
+    output, as mamba2_block hands them over, against ssd_scan_ref's
+    autograd in f32 on the same values; the forward kernel's and the plain
+    backward's times."""
+    b, s, h, p, n = case
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    conv = (torch.randn((b, s, h * p + 2 * n), generator=gen, device="cuda") * 0.5).to(dtype)
+    conv.requires_grad_()
+    x, Bm, Cm = (conv[..., :h * p].reshape(b, s, h, p), conv[..., h * p:h * p + n],
+                 conv[..., h * p + n:])
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+    dt.requires_grad_()
+    A = (-torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.3)).requires_grad_()
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    want_body = ssd.body(x, Bm, Cm)
+    before = ops.launch_counts()
+    y, _ = ops.ssd_scan(x, dt, A, Bm, Cm)
+    got = (y.detach(),) + torch.autograd.grad(y, (conv, dt, A), dy)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    if type(y.grad_fn).__name__ != "SSDScanBackward":
+        raise AssertionError(f"ssd_scan: no SSDScan node ({y.grad_fn})")
+    for nm in ("ssd_scan", f"ssd_scan.{want_body}"):
+        require(after, nm, after.get(nm, 0) == before.get(nm, 0) + 1, f"{before.get(nm, 0) + 1}")
+    pconv, pdt, pA = grad_leaves(torch, (conv, dt, A))
+    py, _ = ref.ssd_scan_ref(pconv[..., :h * p].reshape(b, s, h, p), pdt, pA,
+                             pconv[..., h * p:h * p + n], pconv[..., h * p + n:])
+    want = (py.detach(),) + torch.autograd.grad(py, (pconv, pdt, pA), dy.float())
+    log(f"  ssd_scan {name} x({b},{s},{h},{p}) B/C({b},{s},{n}) strided views ({want_body}):")
+    errs = {}
+    for part, g, w in zip(("y", "d(x|B|C)", "ddt", "dA"), got, want):
+        if name == "bfloat16" and part == "y":
+            # the tensor-core body's own bf16 rounding (W and h_enter, which
+            # sums the history, go to bf16 A fragments): phase 3's limit
+            # for this kernel; the row-scaled reading is reported
+            errs["y row-scaled (reported)"] = row_scaled_err(g, w)
+            errs[part] = check_close(f"y (row-scaled {errs['y row-scaled (reported)']:.3e}, "
+                                     f"reported)", g, w, name, SSD_TOL)
+            continue
+        if name == "bfloat16" and part == "dA":  # (H,) f32 sums: one row
+            g, w = g[None], w[None]
+        errs[part] = check_grad_pair(part, g, w, name)
+    xd, dtd, Ad, Bd, Cd = (t.detach() for t in (x, dt, A, Bm, Cm))
+    zero = torch.zeros((b, h, p, n), device="cuda")
+    return dict(shape=f"x({b},{s},{h},{p}) B/C({b},{s},{n}) {name}", body=want_body, errors=errs,
+                fwd_kernel_ms=time_ms(lambda: ssd.ssd_scan_cuda(xd, dtd, Ad, Bd, Cd), [()], iters=5),
+                bwd_plain_ms=time_ms(lambda: ref.ssd_scan_bwd_ref(
+                    xd, dtd, Ad, Bd, Cd, None, dy, zero, (True,) * 5 + (False,)), [()], iters=5))
+
+
+def loss_and_grads(torch, mb, params, batch, tree_leaves, tree_unflatten):
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    loss, _ = mb.loss_fn(tree_unflatten(params, leaves), batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def train_vs_cpu(torch, ops, label, cfg, batch_size, seq, seed=0):
+    """One f32 step's loss and gradients of ``cfg`` on the card against the
+    CPU, same weights (drawn on the host) and batch; the bf16 loss of the
+    same weights and batch on the card against the f32 one.  Returns the
+    errors and the card runs' launches."""
+    from repro_torch.models import bundle
+    from repro_torch.training import data
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    mb = bundle(cfg32)
+    params = mb.init(torch.Generator().manual_seed(seed), device="cpu")
+    dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch_size,
+                           seed=seed,
+                           frontend=cfg.frontend or ("audio" if cfg.enc_dec else None),
+                           frontend_len=cfg.frontend_len, frontend_dim=cfg.frontend_dim,
+                           dtype="float32")
+    batch = data.get_batch(dcfg, 0, device="cpu")
+    l_cpu, g_cpu = loss_and_grads(torch, mb, params, batch, tree_leaves, tree_unflatten)
+    ops.reset_launch_counts()
+    l_card, g_card = loss_and_grads(
+        torch, mb, tree_map(lambda t: t.cuda(), params),
+        {k: v.cuda() for k, v in batch.items()}, tree_leaves, tree_unflatten)
+    mb16 = bundle(dataclasses.replace(cfg, dtype="bfloat16"))
+    p16 = tree_map(lambda t: t.cuda(), bf16_like(torch, params, mb16))
+    b16 = {k: (v.to(torch.bfloat16) if v.is_floating_point() else v).cuda()
+           for k, v in batch.items()}
+    with torch.no_grad():
+        l16, _ = mb16.loss_fn(p16, b16)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    gn_cpu = float(torch.sqrt(sum((g.double() ** 2).sum() for g in g_cpu)))
+    gn_card = float(torch.sqrt(sum((g.double().cpu() ** 2).sum() for g in g_card)))
+    leaf = max(rel_err(a.cpu(), b) for a, b in zip(g_card, g_cpu))
+    out = dict(loss_cpu=float(l_cpu), loss_card=float(l_card), loss_card_bf16=float(l16),
+               loss_rel=abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu)),
+               grad_norm_rel=abs(gn_card - gn_cpu) / gn_cpu, grad_leaf_rel=leaf,
+               bf16_loss_rel=abs(float(l16) - float(l_card)) / abs(float(l_card)),
+               launches=counts)
+    ok = (out["loss_rel"] <= TRAIN_LOSS_REL and out["grad_norm_rel"] <= TRAIN_GNORM_REL
+          and leaf <= TRAIN_LEAF_REL and out["bf16_loss_rel"] <= TRAIN_BF16_REL)
+    log(f"  {label}: loss cpu {out['loss_cpu']:.6f} card {out['loss_card']:.6f} "
+        f"(rel {out['loss_rel']:.2e}, tol {TRAIN_LOSS_REL:g}), grad norm rel "
+        f"{out['grad_norm_rel']:.2e} (tol {TRAIN_GNORM_REL:g}), worst leaf {leaf:.2e} "
+        f"(tol {TRAIN_LEAF_REL:g}), card bf16 loss {out['loss_card_bf16']:.6f} (rel "
+        f"{out['bf16_loss_rel']:.2e}, tol {TRAIN_BF16_REL:g}); launches "
+        f"{ {k: v for k, v in sorted(counts.items())} } {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the card's training step disagrees with the CPU's")
+    return out
+
+
+def bf16_like(torch, params, mb16):
+    """``params`` (f32, on the host) in the dtypes of ``mb16``'s leaves: the
+    bf16 model's weights, its f32 leaves kept f32."""
+    from repro_torch.models.model_zoo import param_specs
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    specs = list(tree_leaves(param_specs(mb16.cfg)))
+    return tree_unflatten(params, [t.to(s.dtype or torch.bfloat16)
+                                   for t, s in zip(tree_leaves(params), specs)])
+
+
+def zamba2_steps(torch, ops, ssd_times):
+    """TRAIN_ZAMBA2's steps through make_train_step (as launch/train.py
+    builds it), launch counts zeroed just before and read just after: the
+    SSD scan layers x steps x 2 (remat) times and flash once per shared
+    application a step (the shared block is not rematerialized, as in the
+    reference), all through the tensor cores; the SSD forward kernel's and
+    its plain backward's times ((a), CUDA events) against the steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import bundle
+    from repro_torch.training import data, optimizer as opt
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+    over, bsz, seq, steps = TRAIN_ZAMBA2
+    cfg = dataclasses.replace(get_config(ZAMBA2), **over)
+    mb = bundle(cfg)
+    params = mb.init(torch.Generator().manual_seed(0), device="cuda")
+    ocfg = opt.AdamWConfig()
+    state = opt.init(params, ocfg)
+    step_fn = make_train_step(mb, ocfg, TrainConfig(remat=True))
+    dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=bsz)
+    ops.reset_launch_counts()
+    seconds, losses = [], []
+    for i in range(steps):
+        t = time.perf_counter()
+        params, state, m = step_fn(params, state, data.get_batch(dcfg, i, device="cuda"))
+        losses.append(float(m["loss"]))
+        seconds.append(time.perf_counter() - t)
+    counts = ops.launch_counts()
+    n_apps = cfg.n_layers // cfg.shared_attn_every
+    want = {"ssd_scan": cfg.n_layers * steps * 2, "ssd_scan.tc": cfg.n_layers * steps * 2,
+            "flash_attention": n_apps * steps, "flash_attention.tc": n_apps * steps}
+    for n, w in want.items():
+        require(counts, n, counts.get(n, 0) == w, f"{w}")
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"zamba2-1.2b training: a loss is not finite: {losses}")
+    steady_ms = sum(seconds[1:]) * 1e3
+    out = dict(arch=ZAMBA2, cut=over, batch=bsz, seq=seq, losses=losses, step_seconds=seconds,
+               launches=counts,
+               ssd_fwd_share=ssd_times["fwd_kernel_ms"] * 2 * cfg.n_layers * (steps - 1)
+               / steady_ms,
+               ssd_bwd_plain_share=ssd_times["bwd_plain_ms"] * cfg.n_layers * (steps - 1)
+               / steady_ms)
+    log(f"  zamba2-1.2b {over} bf16 batch {bsz} x {seq}: steps {[round(x, 3) for x in seconds]} s, "
+        f"SSD forward kernel {out['ssd_fwd_share']:.1%} and plain SSD backward "
+        f"{out['ssd_bwd_plain_share']:.1%} of the steady steps; launches "
+        f"{ {k: v for k, v in sorted(counts.items())} }")
+    return out
+
+
+def phase_training(torch, F, ops, ref, _build, fa, ssd):
+    """Phase 11: (a) the autograd Functions against plain autograd on the card;
+    (b) smollm-135m trained at full width through launch/train.py, launch
+    counts zeroed just before and read just after; (c) the card against the
+    CPU on one step of the TRAIN_VS_CPU cuts; (d) every arch at reduced()
+    the same way.  Returns the {"training": ...} summary, the launches of
+    (b)'s two training runs (smollm-135m, zamba2-1.2b) together, and flash's
+    and the SSD scan's kernel times at (b)'s shapes (with their plain
+    backward's) for the kernels line."""
+    from repro_torch.configs import ARCHS, get_config, reduced
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    log("phase 11 (a): the autograd Functions against plain autograd")
+    autograd = {}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for label, case in TRAIN_FLASH_CASES.items():
+        for dname, dtype in dtypes.items():
+            autograd[f"flash {label} {dname}"] = autograd_flash_case(
+                torch, ops, ref, fa, gen, label, dtype, case)
+            torch.cuda.empty_cache()
+    for dname, dtype in dtypes.items():
+        autograd[f"ssd_scan {dname}"] = autograd_ssd_case(torch, ops, ref, ssd, gen, dtype,
+                                                          TRAIN_SSD_CASE)
+    # the forward kernels at (b)'s shapes for the kernels line, beside their
+    # plain backward's time
+    times = {
+        "flash_attention": dict(
+            time_flash_case(torch, F, ref, fa, gen, *TRAIN_FLASH_CASES[SMOLLM]),
+            bwd_plain_ms=autograd[f"flash {SMOLLM} bfloat16"]["bwd_plain_ms"]),
+        "ssd_scan": dict(time_ssd_case(torch, ref, _build, ssd, gen, *TRAIN_SSD_CASE, simt=False),
+                         bwd_plain_ms=autograd["ssd_scan bfloat16"]["bwd_plain_ms"]),
+    }
+    t_a = time.perf_counter() - t0
+
+    log("phase 11 (b): smollm-135m at full width through launch/train.py")
+    cfg = get_config(SMOLLM)
+    args = train_launch.parse_args(TRAIN_ARGS)
+    remat = transformer.remat_mode()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    ops.reset_launch_counts()
+    run = train_launch.train(args)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    want_flash = cfg.n_layers * 1 * args.steps * 2  # layers x microbatches x steps x remat
+    require(counts, "flash_attention", counts.get("flash_attention", 0) == want_flash,
+            f"{want_flash} (layers x microbatches x steps x 2 with remat)")
+    require(counts, "flash_attention.tc", counts.get("flash_attention.tc", 0) == want_flash,
+            f"{want_flash}: every launch through the tensor cores")
+    for n in ("decode_attention", "decode_attention_q8", "ssd_scan"):
+        require(counts, n, counts.get(n, 0) == 0, "0")
+    if not run["improved"]:
+        raise AssertionError(f"smollm-135m: the loss did not fall ({run['first']:.4f} -> "
+                             f"{run['last']:.4f})")
+    steady = sorted(run["step_seconds"][1:])
+    s_step = steady[len(steady) // 2]
+    # the flash forward kernel's and the plain backward's time at this shape
+    # ((a), CUDA events) times their calls in the run, against the run's steps
+    timed = autograd[f"flash {SMOLLM} bfloat16"]
+    steps_ms = sum(run["step_seconds"][1:]) * 1e3
+    n_steady = args.steps - 1
+    train_b = dict(arch=SMOLLM, args=TRAIN_ARGS, lr=args.lr, layers=cfg.n_layers,
+                   d_model=cfg.d_model,
+                   dtype=cfg.dtype, remat="block", losses=run["losses"], first=run["first"],
+                   last=run["last"], step_seconds=run["step_seconds"],
+                   median_step_s=s_step, tok_per_s=args.batch * args.seq / s_step,
+                   peak_mem_bytes=peak, held_before_bytes=base, launches=counts,
+                   expected_flash=want_flash,
+                   flash_fwd_ms=timed["fwd_kernel_ms"], flash_bwd_plain_ms=timed["bwd_plain_ms"],
+                   flash_fwd_share=timed["fwd_kernel_ms"] * 2 * cfg.n_layers * n_steady / steps_ms,
+                   flash_bwd_plain_share=timed["bwd_plain_ms"] * cfg.n_layers * n_steady
+                   / steps_ms)
+    log(f"  smollm-135m: loss {run['first']:.4f} -> {run['last']:.4f}, median step "
+        f"{s_step:.4f} s ({train_b['tok_per_s']:.1f} tok/s), first step "
+        f"{run['step_seconds'][0]:.3f} s, peak {peak / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB held before; flash forward kernel "
+        f"{train_b['flash_fwd_share']:.1%} and plain attention backward "
+        f"{train_b['flash_bwd_plain_share']:.1%} of the steady steps; launches "
+        f"{ {k: v for k, v in sorted(counts.items())} }")
+    train_b["zamba2"] = zamba2_steps(torch, ops, autograd["ssd_scan bfloat16"])
+    transformer.set_remat(remat)
+    t_b = time.perf_counter() - t0 - t_a
+    torch.cuda.empty_cache()
+
+    log("phase 11 (c): one f32 step on the card against the CPU, full width, depth cut")
+    vs_cpu = {}
+    for arch, (over, bsz, seq) in TRAIN_VS_CPU.items():
+        c = dataclasses.replace(get_config(arch), **over)
+        vs_cpu[arch] = train_vs_cpu(torch, ops, f"{arch} {over} batch {bsz} x {seq}", c, bsz, seq)
+        want = {"ssd_scan": arch == ZAMBA2, "flash_attention": True}
+        for n, used in want.items():
+            require(vs_cpu[arch]["launches"], n,
+                    (vs_cpu[arch]["launches"].get(n, 0) > 0) == used,
+                    "> 0" if used else "0")
+        torch.cuda.empty_cache()
+    log("phase 11 (d): every arch at reduced(), one f32 step on the card against the CPU")
+    reduced_runs = {}
+    for arch in sorted(ARCHS):
+        c = reduced(get_config(arch), capacity_factor=4.0)
+        reduced_runs[arch] = train_vs_cpu(torch, ops, f"{arch} reduced", c, 2, 64)
+    total = time.perf_counter() - t0
+    log(f"phase 11: {total:.1f} s ((a) {t_a:.1f}, (b) {t_b:.1f}, (c)+(d) "
+        f"{total - t_a - t_b:.1f}; target {TRAIN_PHASE_TARGET_S:g})")
+    z_counts = train_b["zamba2"]["launches"]
+    both = {n: counts.get(n, 0) + z_counts.get(n, 0) for n in set(counts) | set(z_counts)}
+    for name, t in times.items():
+        t["launches"] = both.get(name, 0)
+    return dict(autograd=autograd, smollm=train_b, vs_cpu=vs_cpu, reduced=reduced_runs,
+                seconds=total), both, times
 
 
 def main() -> int:
@@ -2043,6 +2479,12 @@ def main() -> int:
     families = phase_families(torch, ops, Engine, EngineConfig, Request, bundle, tree_map)
     fam_flash, fam_decode = family_kernel_times(torch, F, ref, fa, dec, families)
     entries[0]["families"], entries[1]["families"] = fam_flash, fam_decode
+    torch.cuda.empty_cache()
+    training, train_counts, train_times = phase_training(torch, F, ops, ref, _build, fa, ssd)
+    for e in entries:
+        e["launches_by_path"]["training"] = train_counts.get(e["name"], 0)
+        if e["name"] in train_times:
+            e["training"] = train_times[e["name"]]
     for e in entries:
         e["launches_by_path"]["calibration"] = cal_counts.get(e["name"], 0)
         if e["name"] in cal_times:
@@ -2052,7 +2494,8 @@ def main() -> int:
             e["launches_by_path"][arch] = run["launches"].get(e["name"], 0)
     for e in entries:
         for path, t in [(e["launches_path"], e)] + [(p, e[k]) for p, k in (
-                (ZAMBA2, "zamba2"), ("calibration", "calibration")) if k in e]:
+                (ZAMBA2, "zamba2"), ("calibration", "calibration"), ("training", "training"))
+                if k in e]:
             lib = "none" if t["library_ms"] is None else (
                 f"{t['library_ms']:.4f} ms, device {t['library_device_ms']:.4f} ms")
             log(f"  {e['name']} {t['shape']}: {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms "
@@ -2077,6 +2520,7 @@ def main() -> int:
     log(json.dumps({"cluster": cluster}))
     log(json.dumps({"fleet": fleet}))
     log(json.dumps({"families": families}))
+    log(json.dumps({"training": training}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the serving path.
+"""Hand-written Hopper kernels of the serving and training paths.
 
 kernels:
   flash_attention     — prefill attention (GQA, causal, sliding window, Sq != Sk)
@@ -9,5 +9,7 @@ kernels:
 Each is CUDA C++ under ``csrc/`` built for ``sm_90a`` at first use
 (``_build.py``), with its plain PyTorch version in ``ref.py``; ``ops.py`` is the
 dispatch the models call (kernel for CUDA tensors, plain version for CPU ones).
+Under autograd, flash attention and the SSD scan go through
+``torch.autograd.Function``s whose backward is plain PyTorch (``ref.py``).
 """
 from . import ops  # noqa: F401

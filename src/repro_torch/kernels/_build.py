@@ -10,7 +10,10 @@ the CPU tests import every module without a CUDA toolkit.
 
 ``launch`` is the one place a kernel is started.  It counts the launch and
 raises if the C side reports a CUDA error, so a refused launch never passes
-silently.
+silently.  A kernel writes into a fresh tensor that autograd knows nothing
+of: ``forbid_graph`` makes a ``*_cuda`` wrapper raise where its caller would
+want a gradient, and ``wants_graph`` routes such a call through the
+kernel's ``torch.autograd.Function`` where it has one.
 """
 from __future__ import annotations
 
@@ -25,9 +28,11 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Union
 
+import torch
+
 __all__ = [
     "CSRC", "BUILD_DIR", "NVCC_FLAGS", "build", "load", "launch",
-    "launch_counts", "reset_launch_counts",
+    "launch_counts", "reset_launch_counts", "wants_graph", "forbid_graph",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -136,6 +141,21 @@ def launch(counters: Union[str, Sequence[str]], fn, *args) -> None:
         raise RuntimeError(f"{names[0]} kernel launch failed: cudaError_t {rc}")
     for name in names:
         _COUNTS[name] = _COUNTS.get(name, 0) + 1
+
+
+def wants_graph(*tensors) -> bool:
+    """Grad mode is on and some input requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def forbid_graph(name: str, *tensors) -> None:
+    """Raise where a kernel's output would silently cut the autograd graph."""
+    if wants_graph(*tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward here; an input requires grad "
+            "under grad mode (call it under torch.no_grad(), or through its "
+            "autograd Function where it has one)")
 
 
 def launch_counts() -> Dict[str, int]:

@@ -7,7 +7,9 @@ plain version (``ref.decode_attention_ref``) only for a CPU tensor.
 The kernel splits each slot's cache into ``SPLIT``-row pieces, one block
 each, and a second launch merges the pieces' partial softmax states; the
 partials go to an f32 scratch tensor allocated here.  One call counts as
-one ``decode_attention`` launch.
+one ``decode_attention`` launch.  No training path reaches this kernel and it
+has no backward (nor has the reference's): under autograd (grad enabled and
+an input that requires grad) it raises.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ def decode_attention_cuda(
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     if d > 256 or dv > 256:
         raise ValueError("decode_attention_cuda: head dims above 256")
+    _build.forbid_graph("decode_attention_cuda", q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode_attention_cuda: q, k, v must be contiguous")
     lengths = torch.as_tensor(length, device=q.device)

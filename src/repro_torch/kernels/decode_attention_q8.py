@@ -7,7 +7,10 @@ the plain version (``ref.decode_attention_q8_ref``) only for a CPU tensor.
 The design is the bf16 decode's split-K: the kernel splits each slot's cache
 into ``SPLIT``-row pieces, one block each, and the bf16 decode's combine
 kernel merges the pieces' partial softmax states from an f32 scratch tensor
-allocated here.  One call counts as one ``decode_attention_q8`` launch.
+allocated here.  One call counts as one ``decode_attention_q8`` launch.  No
+training path reaches this kernel and it has no backward (nor has the
+reference's): under autograd (grad enabled and an input that requires grad)
+it raises.
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ def decode_attention_q8_cuda(
                          f"v_s{tuple(v_s.shape)}")
     if d > 256 or dv > 256:
         raise ValueError("decode_attention_q8_cuda: head dims above 256")
+    _build.forbid_graph("decode_attention_q8_cuda", q, *tensors)
     if not (q.is_contiguous() and all(t.is_contiguous() for t in tensors)):
         raise ValueError("decode_attention_q8_cuda: every input must be contiguous")
     lengths = torch.as_tensor(length, device=q.device)

@@ -10,6 +10,13 @@ launch: the tensor-core body for bf16 with both head dims multiples of 16
 which the tensor cores cannot keep to 2e-5, and odd bf16 head dims).  Every
 launch counts under ``flash_attention`` and under its body's own counter,
 ``flash_attention.tc`` or ``flash_attention.simt``.
+
+Under autograd (grad enabled and an input that requires grad) a CUDA tensor
+goes through ``FlashAttention``, a ``torch.autograd.Function``: its forward
+is the same kernel launch, its backward the plain query-chunked recompute
+``ref.attention_bwd_ref`` (the reference has no backward kernel either; it
+differentiates its chunked jnp attention).  ``flash_attention_cuda`` itself
+never builds a graph, so it raises when called directly under autograd.
 """
 from __future__ import annotations
 
@@ -19,9 +26,9 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_ref
 
-__all__ = ["flash_attention", "flash_attention_cuda", "body", "NAME"]
+__all__ = ["flash_attention", "flash_attention_cuda", "FlashAttention", "body", "NAME"]
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,6 +70,7 @@ def flash_attention_cuda(
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
     if d > 256 or dv > 256:
         raise ValueError("flash_attention_cuda: head dims above 256")
+    _build.forbid_graph("flash_attention_cuda", q, k, v)
     if causal and sq > sk:
         raise ValueError("flash_attention_cuda: causal with Sq > Sk leaves query rows "
                          "with no visible key")
@@ -83,10 +91,35 @@ def flash_attention_cuda(
     return out
 
 
+class FlashAttention(torch.autograd.Function):
+    """Forward: ``flash_attention_cuda`` on a CUDA tensor (``attention_ref`` on
+    a CPU one, which the CPU tests use to check this backward).  Backward:
+    ``attention_bwd_ref``, which recomputes the probabilities chunk by chunk
+    from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sliding_window: Optional[int]):
+        if q.is_cuda:
+            out = flash_attention_cuda(q, k, v, causal, sliding_window)
+        else:
+            out = attention_ref(q, k, v, causal, sliding_window)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, sliding_window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_bwd_ref(q, k, v, dout, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, sliding_window: Optional[int] = None):
-    """CUDA tensor: the hand-written kernel (or an error).  CPU tensor: the
-    plain version."""
+    """CUDA tensor: the hand-written kernel (or an error), through
+    ``FlashAttention`` under autograd.  CPU tensor: the plain version."""
     if q.is_cuda:
+        if _build.wants_graph(q, k, v):
+            return FlashAttention.apply(q, k, v, causal, sliding_window)
         return flash_attention_cuda(q, k, v, causal, sliding_window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal, sliding_window)

@@ -2,8 +2,11 @@
 
 Counterpart of ``repro/kernels/ops.py``.  There is no global switch: a CUDA
 tensor launches the hand-written kernel (or raises), a CPU tensor takes the
-plain version.  No ``try`` falls back from one to the other.  Every kernel
-keeps an integer launch count, read with ``launch_counts()``.
+plain version.  No ``try`` falls back from one to the other.  Under autograd
+a CUDA tensor's flash attention and SSD scan go through their
+``torch.autograd.Function`` (the kernel forward, a plain backward); the
+decode kernels raise there.  Every kernel keeps an integer launch count,
+read with ``launch_counts()``.
 """
 from __future__ import annotations
 

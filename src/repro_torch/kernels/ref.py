@@ -1,5 +1,10 @@
 """Plain PyTorch versions of the kernels: naive, obviously-correct math.  They are the CPU execution path and the oracle that every CUDA kernel
-is held against on the card.  Counterpart of ``repro/kernels/ref.py``."""
+is held against on the card.  Counterpart of ``repro/kernels/ref.py``.
+
+The backward passes of flash attention and the SSD scan are here too
+(``attention_bwd_ref``, ``ssd_scan_bwd_ref``): the reference has no backward
+kernel, so on the card the kernels' autograd Functions differentiate these
+plain recomputes."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -10,10 +15,32 @@ __all__ = [
     "attention_ref", "decode_attention_ref", "decode_split_partials_ref",
     "decode_split_combine_ref", "quantize_kv", "decode_attention_q8_ref",
     "decode_q8_split_partials_ref", "ssd_scan_ref", "ssd_chunk_states_ref",
-    "ssd_state_passing_ref", "ssd_chunk_scan_ref",
+    "ssd_state_passing_ref", "ssd_chunk_scan_ref", "attention_bwd_ref", "ssd_scan_chunked_ref",
+    "ssd_scan_bwd_ref",
 ]
 
 _NEG = -1e30
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in its accumulation type: f32 for bf16 and f32, f64 kept."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _attention_mask(sq: int, sk: int, causal: bool, sliding_window: Optional[int], device,
+                    q0: int = 0, rows: Optional[int] = None) -> torch.Tensor:
+    """(rows, Sk) bool: query rows q0 .. q0 + rows of Sq against every key,
+    the ends of the two ranges aligned (query i sits at key position
+    i + Sk - Sq), then causal and the sliding window."""
+    rows = sq if rows is None else rows
+    qpos = torch.arange(q0, q0 + rows, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((rows, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if sliding_window is not None:
+        mask &= kpos > qpos - sliding_window
+    return mask
 
 
 def attention_ref(
@@ -33,20 +60,60 @@ def attention_ref(
     sk, hkv = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     g = hq // hkv
-    qg = q.reshape(b, sq, hkv, g, d).float()
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / (d ** 0.5)
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if sliding_window is not None:
-        mask &= kpos > qpos - sliding_window
+    qg = _acc(q.reshape(b, sq, hkv, g, d))
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, _acc(k)) / (d ** 0.5)
+    mask = _attention_mask(sq, sk, causal, sliding_window, q.device)
     scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
     p = torch.exp(scores - scores.amax(-1, keepdim=True))
     p = p / p.sum(-1, keepdim=True)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, _acc(v))
     return out.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    causal: bool = True,
+    sliding_window: Optional[int] = None,
+    q_chunk: int = 512,
+):
+    """The gradients (dq, dk, dv) of ``attention_ref`` at dout (B,Sq,Hq,Dv),
+    each in its input's dtype, recomputed query chunk by query chunk as the
+    reference's ``_chunked_attention`` is differentiated: per chunk of
+    ``q_chunk`` rows the scores and probabilities (B,Hkv,G,chunk,Sk) are
+    rebuilt, never the whole (Sq x Sk) matrix.  The mask is the forward's
+    (ends aligned, causal, window); a masked score gets no gradient, as
+    through ``attention_ref``'s ``where``.  Accumulates in f32 (f64 for f64
+    inputs).  With P the probabilities and dP = dout V^T:
+    dV = P^T dout, dS = P (dP - rowsum(P dP)), dQ = dS K / sqrt(D),
+    dK = dS^T Q / sqrt(D)."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    dv_ = v.shape[-1]
+    g = hq // hkv
+    scale = 1.0 / (d ** 0.5)
+    kf, vf = _acc(k), _acc(v)
+    qg = q.reshape(b, sq, hkv, g, d)
+    dog = dout.reshape(b, sq, hkv, g, dv_)
+    dq = torch.empty((b, sq, hkv, g, d), dtype=kf.dtype, device=q.device)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, sq, q_chunk):
+        rows = min(q_chunk, sq - q0)
+        qc, doc = _acc(qg[:, q0:q0 + rows]), _acc(dog[:, q0:q0 + rows])
+        mask = _attention_mask(sq, sk, causal, sliding_window, q.device, q0, rows)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qc, kf) * scale
+        scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
+        p = torch.exp(scores - scores.amax(-1, keepdim=True))
+        p = p / p.sum(-1, keepdim=True)
+        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, doc)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", doc, vf)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        ds = torch.where(mask, ds, torch.zeros_like(ds))
+        dq[:, q0:q0 + rows] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qc) * scale
+    return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(
@@ -280,3 +347,38 @@ def ssd_chunk_scan_ref(x, dt, A, B, C, h_enter, chunk: int = 64):
     y = torch.einsum("bctuh,bcuhp->bcthp", w, _ssd_chunks(x, chunk))
     y = y + torch.einsum("bctn,bchpn->bcthp", Cc, h_enter) * torch.exp(cum)[..., None]
     return y.reshape(bt, -1, h, p)[:, :s].to(x.dtype)
+
+
+def ssd_scan_chunked_ref(x, dt, A, B, C, initial_state=None, chunk: int = 64):
+    """``ssd_scan_ref``'s recurrence through the three chunk-parallel passes
+    above -> (y (Bt, S, H, P) in x's dtype, final state (Bt, H, P, N) f32).
+    The same math in O(S / chunk) steps instead of O(S); differentiable."""
+    states, cum_last = ssd_chunk_states_ref(x, dt, A, B, chunk)
+    h_enter, final = ssd_state_passing_ref(states, cum_last, initial_state)
+    return ssd_chunk_scan_ref(x, dt, A, B, C, h_enter, chunk), final
+
+
+def ssd_scan_bwd_ref(x, dt, A, B, C, initial_state, dy, dfinal, needs=(True,) * 6):
+    """The gradients of the SSD scan for (x, dt, A, B, C, initial_state) at
+    dy (Bt,S,H,P) and dfinal (Bt,H,P,N): ``ssd_scan_chunked_ref`` recomputed
+    under autograd from f32 copies of the inputs (strided views included)
+    and differentiated; each gradient is summed in f32 and rounded to its
+    input's dtype once.  ``needs[i]`` False (or a None input) gives None for
+    that input."""
+    inputs = (x, dt, A, B, C, initial_state)
+    leaves = [None if t is None else _acc(t.detach()).requires_grad_(bool(n))
+              for t, n in zip(inputs, needs)]
+    wanted = [t for t in leaves if t is not None and t.requires_grad]
+    with torch.enable_grad():
+        y, final = ssd_scan_chunked_ref(*leaves)
+        grads = torch.autograd.grad((y, final), wanted, (_acc(dy), _acc(dfinal)),
+                                    allow_unused=True)
+    it = iter(grads)
+    out = []
+    for t, leaf in zip(inputs, leaves):
+        if leaf is None or not leaf.requires_grad:
+            out.append(None)
+            continue
+        gr = next(it)
+        out.append(torch.zeros_like(t) if gr is None else gr.to(t.dtype))
+    return tuple(out)

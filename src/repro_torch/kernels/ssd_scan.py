@@ -13,6 +13,14 @@ P and N multiples of 16, P <= 256 and 16-byte aligned rows, the CUDA-core
 body for everything else (f32, which the tensor cores cannot keep to 5e-5,
 and other bf16 shapes).  Every call counts under ``ssd_scan`` and under its
 body's own counter, ``ssd_scan.tc`` or ``ssd_scan.simt``.
+
+Under autograd (grad enabled and an input that requires grad) a CUDA tensor
+goes through ``SSDScan``, a ``torch.autograd.Function``: its forward is the
+same kernel launch, its backward ``ref.ssd_scan_bwd_ref``, the plain
+recurrence recomputed under autograd in its chunk-parallel form (the
+reference has no backward kernel; it differentiates its chunked jnp scan).
+``ssd_scan_cuda`` itself never builds a graph, so it raises when called
+directly under autograd.
 """
 from __future__ import annotations
 
@@ -22,9 +30,9 @@ from typing import Optional
 import torch
 
 from . import _build
-from .ref import ssd_scan_ref
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_scan_cuda", "body", "NAME", "CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_cuda", "SSDScan", "body", "NAME", "CHUNK"]
 
 NAME = "ssd_scan"
 #: the kernel's time tile (``L`` in csrc/ssd_scan.cu); sizes the tensor-core body's scratch
@@ -79,6 +87,7 @@ def ssd_scan_cuda(
                          f"A{tuple(A.shape)} B{tuple(B.shape)} C{tuple(C.shape)}")
     if not 0 < n <= _MAX_N:
         raise ValueError(f"ssd_scan_cuda: state size N={n} outside (0, {_MAX_N}]")
+    _build.forbid_graph("ssd_scan_cuda", *tensors)
     # an empty sequence reads nothing, whatever strides it carries
     if s > 0 and (x.stride(3) != 1 or x.stride(2) != p):
         raise ValueError("ssd_scan_cuda: x needs contiguous (H, P) rows")
@@ -114,10 +123,30 @@ def ssd_scan_cuda(
     return y, h_t
 
 
+class SSDScan(torch.autograd.Function):
+    """Forward: ``ssd_scan_cuda`` on a CUDA tensor (``ssd_scan_ref`` on a CPU
+    one, which the CPU tests use to check this backward), on the inputs as
+    given, strided views included.  Backward: ``ssd_scan_bwd_ref`` from the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, initial_state):
+        fn = ssd_scan_cuda if x.is_cuda else ssd_scan_ref
+        y, final = fn(x, dt, A, B, C, initial_state)
+        ctx.save_for_backward(x, dt, A, B, C, initial_state)
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        return ssd_scan_bwd_ref(*ctx.saved_tensors, dy, dfinal, ctx.needs_input_grad)
+
+
 def ssd_scan(x, dt, A, B, C, initial_state=None):
-    """CUDA tensor: the hand-written kernel (or an error).  CPU tensor: the
-    plain version."""
+    """CUDA tensor: the hand-written kernel (or an error), through ``SSDScan``
+    under autograd.  CPU tensor: the plain version."""
     if x.is_cuda:
+        if _build.wants_graph(x, dt, A, B, C, initial_state):
+            return SSDScan.apply(x, dt, A, B, C, initial_state)
         return ssd_scan_cuda(x, dt, A, B, C, initial_state)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, initial_state)

@@ -1,4 +1,4 @@
-"""ArchConfig -> runnable model bundle: init / prefill / decode.
+"""ArchConfig -> runnable model bundle: init / loss / prefill / decode.
 Counterpart of ``repro/models/model_zoo.py``.
 
 Parameters are a nested dict of tensors with the reference's pytree layout
@@ -170,8 +170,8 @@ def _slstm_block(cfg: ArchConfig, lead=()) -> Params:
 def param_specs(cfg: ArchConfig) -> Params:
     """The parameter tree with a ``Leaf`` per parameter; mirrors
     ``repro.models.transformer.Model.init`` (groups split as ``Model._groups``).
-    DeepSeek's multi-token-prediction head (``mtp``) is in the tree, so it
-    bridges and counts, but no forward pass of the port runs it."""
+    DeepSeek's multi-token-prediction head (``mtp``) is run by ``Model.loss``
+    only."""
     d = cfg.d_model
     specs: Params = {
         "embedding": Leaf((cfg.vocab_size, d), "normal", 0.02),
@@ -208,7 +208,8 @@ class ModelBundle:
     # ---- init --------------------------------------------------------------
     def init(self, generator: torch.Generator, device="cuda") -> Params:
         """Random weights drawn from ``generator`` (on its own device), each
-        in its leaf's dtype on ``device``."""
+        in its leaf's dtype on ``device``.  Every leaf is a fresh tensor that
+        requires no grad, so training can mark it ``requires_grad_()``."""
         dev = resolve_device(device)
         dtype = torch_dtype(self.cfg)
 
@@ -250,6 +251,10 @@ class ModelBundle:
         return int(total - expert_total * (1 - active_frac))
 
     # ---- steps --------------------------------------------------------------
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """(total loss, metrics) of ``Model.loss``."""
+        return self.model.loss(params, batch)
+
     def prefill_fn(
         self, params: Params, batch: Dict[str, torch.Tensor], max_len: int
     ) -> Tuple[torch.Tensor, Params]:
@@ -257,7 +262,8 @@ class ModelBundle:
         b, _ = batch["tokens"].shape
         enc_len = self.cfg.frontend_len if self.cfg.enc_dec else 0
         cache = self.model.init_cache(b, max_len, enc_len, device=batch["tokens"].device)
-        return self.model.forward(params, batch, cache=cache)
+        logits, cache, _ = self.model.forward(params, batch, cache=cache)
+        return logits, cache
 
     def decode_fn(
         self,
@@ -268,8 +274,9 @@ class ModelBundle:
     ) -> Tuple[torch.Tensor, Params]:
         b = tokens.shape[0]
         positions = torch.as_tensor(index, device=tokens.device).expand(b, 1)
-        return self.model.forward(params, {"tokens": tokens}, cache=cache,
-                                  positions=positions)
+        logits, cache, _ = self.model.forward(params, {"tokens": tokens}, cache=cache,
+                                              positions=positions)
+        return logits, cache
 
     def supports_shape(self, shape: ShapeConfig) -> bool:
         """long_500k requires sub-quadratic decode: a recurrent state or a

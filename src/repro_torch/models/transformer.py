@@ -11,7 +11,7 @@ copies.  Hybrids split their runs at shared-attention boundaries, as the
 reference does.  Where the reference runs ``jax.lax.scan`` over a stack,
 this runs a Python loop over its rows.  The same ``forward`` serves three
 modes:
-  * no cache — full-sequence causal
+  * no cache — full-sequence causal (training: ``Model.loss``)
   * prefill  — full-sequence causal, K/V and recurrent state written into
                the cache in place
   * decode   — one token per sequence against the cache, in place
@@ -22,6 +22,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -31,6 +32,39 @@ from . import layers, moe, ssm
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+#: activation rematerialization of the layer groups' blocks: None (save
+#: everything) or "block" (save only the residual stream between blocks and
+#: recompute each block's interior in the backward pass).  As in the
+#: reference, the weight-shared attention block, the encoder-decoder trunk and
+#: the MTP block are not rematerialized.
+_REMAT = {"mode": None}
+
+
+def set_remat(mode: Optional[str]) -> None:
+    if mode not in (None, "block"):
+        raise ValueError(f"set_remat: None or 'block', got {mode!r}")
+    _REMAT["mode"] = mode
+
+
+def remat_mode() -> Optional[str]:
+    return _REMAT["mode"]
+
+
+def _maybe_remat(fn):
+    """``fn`` wrapped in ``torch.utils.checkpoint`` under ``set_remat("block")``.
+    Only cacheless (training) calls are wrapped: a prefill or decode writes
+    its cache in place, which a recompute would write twice."""
+    if _REMAT["mode"] != "block":
+        return fn
+
+    def wrapped(p, x, kind, cfg, positions, cache):
+        if cache is not None:
+            return fn(p, x, kind, cfg, positions, cache)
+        # the blocks draw no random numbers, so the RNG state needs no stash
+        return checkpoint(fn, p, x, kind, cfg, positions, cache, use_reentrant=False,
+                          preserve_rng_state=False)
+    return wrapped
 
 
 def torch_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -83,21 +117,22 @@ def _layer(tree, i: int):
 
 
 def _apply_block(p: Params, x: torch.Tensor, kind: str, cfg: ArchConfig, positions, cache):
-    """One block, the cache updated in place.  The MoE's auxiliary loss is
-    dropped: ``forward`` returns (logits, cache) and no training path is
-    ported."""
+    """One block, the cache updated in place.  Returns (x_out, aux): the
+    MoE's f32 load-balancing loss, or the Python float 0.0 for any other
+    block (no tensor is made for it)."""
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
     if kind not in ("attn", "moe"):  # recurrent mixers
         fn = {"mamba2": ssm.mamba2_block, "mlstm": ssm.mlstm_block,
               "slstm": ssm.slstm_block}[kind]
         y, _ = fn(p["mixer"], h, cfg, cache["mixer"] if cache is not None else None)
-        return x + y
+        return x + y, 0.0
     attn = layers.mla_attention if cfg.attention == "mla" else layers.attention
     x = x + attn(p["attn"], h, cfg, positions, cache["attn"] if cache is not None else None)
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
     if kind == "moe":
-        return x + moe.apply_moe(p["moe"], h, cfg)[0]
-    return x + layers.apply_mlp(p["mlp"], h, cfg.mlp)
+        y, aux = moe.apply_moe(p["moe"], h, cfg)
+        return x + y, aux
+    return x + layers.apply_mlp(p["mlp"], h, cfg.mlp), 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,53 +218,60 @@ class Model:
         return layers.apply_norm(params["encoder"]["ln_f"], x, cfg.norm)
 
     # ---- decoder trunks ------------------------------------------------------
-    def _trunk(self, params: Params, x: torch.Tensor, positions, cache) -> torch.Tensor:
+    def _trunk(self, params: Params, x: torch.Tensor, positions, cache):
+        """-> (x, aux summed over the blocks)."""
         cfg = self.cfg
-        done, shared_ct = 0, 0
+        block = _maybe_remat(_apply_block)
+        done, shared_ct, aux_total = 0, 0, 0.0
         for gi, (kind, count) in enumerate(self._groups()):
             gp = params["groups"][gi]
             gc = cache["groups"][gi] if cache is not None else None
             for i in range(count):
-                x = _apply_block(_layer(gp, i), x, kind, cfg, positions,
-                                 _layer(gc, i) if gc is not None else None)
+                x, aux = block(_layer(gp, i), x, kind, cfg, positions,
+                               _layer(gc, i) if gc is not None else None)
+                aux_total = aux_total + aux
             done += count
             if (cfg.shared_attn_every and done % cfg.shared_attn_every == 0
                     and shared_ct < self.n_shared_apps):
                 sc = _layer(cache["shared"], shared_ct) if cache is not None else None
-                x = _apply_block(params["shared_attn"], x, "attn", cfg, positions, sc)
+                x, aux = _apply_block(params["shared_attn"], x, "attn", cfg, positions, sc)
+                aux_total = aux_total + aux
                 shared_ct += 1
-        return x
+        return x, aux_total
 
     def _trunk_encdec(self, params: Params, x: torch.Tensor, positions, cache,
-                      enc_out: Optional[torch.Tensor]) -> torch.Tensor:
+                      enc_out: Optional[torch.Tensor]):
         """Decoder layers with interleaved cross-attention.  With ``enc_out``
         (prefill, or no cache) the cross K/V are computed from it and, given
         a cache, written there; without it (decode) they are read from the
-        cache."""
+        cache.  -> (x, aux summed over the blocks)."""
         cfg = self.cfg
         gp, cross = params["groups"][0], params["cross"]
+        aux_total = 0.0
         for i in range(cfg.n_layers):
             bc = _layer(cache["groups"][0], i) if cache is not None else None
-            x = _apply_block(_layer(gp, i), x, "attn", cfg, positions, bc)
+            x, aux = _apply_block(_layer(gp, i), x, "attn", cfg, positions, bc)
+            aux_total = aux_total + aux
             cp = _layer(cross, i)
             h = layers.apply_norm(cp["ln"], x, cfg.norm)
             cc = _layer(cache["cross"], i) if cache is not None else None
             x = x + layers.cross_attention(cp["attn"], h, cfg, enc_out, cc)
-        return x
+        return x, aux_total
 
-    # ---- public entry point ------------------------------------------------
+    # ---- public entry points -------------------------------------------------
     def forward(
         self,
         params: Params,
         batch: Dict[str, torch.Tensor],
         cache: Optional[Params] = None,
         positions: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, Optional[Params]]:
-        """Returns (f32 logits (B,S,V), cache).  The cache is updated in place
-        and returned for symmetry with the reference's functional API.
-        ``batch`` holds "tokens" and, at prefill, a VLM's "patch_embeds"
-        (B,n_patches,frontend_dim) or an encoder-decoder's "frames"
-        (B,frontend_len,frontend_dim)."""
+    ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+        """Returns (f32 logits (B,S,V), cache, aux): ``aux`` is the f32 scalar
+        sum of the MoE layers' load-balancing losses (0 without MoE).  The
+        cache is updated in place and returned for symmetry with the
+        reference's functional API.  ``batch`` holds "tokens" and, at
+        prefill, a VLM's "patch_embeds" (B,n_patches,frontend_dim) or an
+        encoder-decoder's "frames" (B,frontend_len,frontend_dim)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -238,12 +280,63 @@ class Model:
         x = self._embed_inputs(params, batch)
         if cfg.enc_dec:
             enc_out = self._encode(params, batch["frames"]) if "frames" in batch else None
-            x = self._trunk_encdec(params, x, positions, cache, enc_out)
+            x, aux = self._trunk_encdec(params, x, positions, cache, enc_out)
         else:
-            x = self._trunk(params, x, positions, cache)
+            x, aux = self._trunk(params, x, positions, cache)
         x = layers.apply_norm(params["ln_f"], x, cfg.norm)
         head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
-        return layers.lm_logits(head, x, cfg.tie_embeddings), cache
+        logits = layers.lm_logits(head, x, cfg.tie_embeddings)
+        if not isinstance(aux, torch.Tensor):
+            aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        return logits, cache, aux
+
+    # ---- loss -----------------------------------------------------------------
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]):
+        """Next-token cross-entropy + 0.01 x the MoE aux loss (+ 0.3 x the MTP
+        loss where the config has an MTP head) -> (total, {"ce", "aux"[, "mtp"]}).
+        Targets are the tokens rolled left by one, the last position masked."""
+        cfg = self.cfg
+        logits, _, aux = self.forward(params, batch)
+        tokens = batch["tokens"]
+        targets = torch.roll(tokens, -1, dims=1)
+        mask = torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
+        mask[:, -1] = 0.0
+        ce = _xent(logits, targets, mask)
+        total = ce + 0.01 * aux
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp_depth and "mtp" in params:
+            mtp_loss = self._mtp_loss(params, batch)
+            total = total + 0.3 * mtp_loss
+            metrics["mtp"] = mtp_loss
+        return total, metrics
+
+    def _mtp_loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """DeepSeek-V3 multi-token prediction (depth 1, simplified, as the
+        reference): one extra block over [emb(t) ; emb(t+1)] predicting token
+        t+2, the last two positions masked."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        emb = layers.embed(params["embedding"], tokens)
+        nxt = torch.roll(emb, -1, dims=1)
+        h = torch.cat([emb, nxt], dim=-1) @ params["mtp"]["proj"]
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        h, _ = _apply_block(params["mtp"]["block"], h, "attn", cfg, positions, None)
+        h = layers.apply_norm(params["mtp"]["ln"], h, cfg.norm)
+        head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
+        logits = layers.lm_logits(head, h, cfg.tie_embeddings)
+        t2 = torch.roll(tokens, -2, dims=1)
+        mask = torch.ones(t2.shape, dtype=torch.float32, device=tokens.device)
+        mask[:, -2:] = 0.0
+        return _xent(logits, t2, mask)
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean token cross-entropy of f32 logits."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp(min=1.0)
 
 
 def _project(inputs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

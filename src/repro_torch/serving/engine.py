@@ -190,7 +190,7 @@ class Engine:
         for i in range(self.cfg.max_slots):
             if self.slots[i] is None:
                 lengths[i] = dev_idx[i]
-        logits, self.cache = self.model.forward(
+        logits, self.cache, _ = self.model.forward(
             self.params,
             {"tokens": torch.from_numpy(tokens).to(self.device)},
             cache=self.cache,

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator
 
-__all__ = ["tree_map", "tree_leaves"]
+__all__ = ["tree_map", "tree_leaves", "tree_unflatten"]
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -25,3 +25,10 @@ def tree_leaves(tree: Any) -> Iterator[Any]:
             yield from tree_leaves(v)
     else:
         yield tree
+
+
+def tree_unflatten(template: Any, leaves) -> Any:
+    """``template``'s containers with its leaves replaced, in
+    ``tree_leaves`` order, by ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)

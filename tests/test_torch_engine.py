@@ -33,7 +33,7 @@ def _naive_generate(mb, params, prompt, n_new):
     toks = list(prompt)
     out = []
     for _ in range(n_new):
-        logits, _ = mb.model.forward(params, {"tokens": torch.tensor([toks])})
+        logits, _, _ = mb.model.forward(params, {"tokens": torch.tensor([toks])})
         nxt = int(torch.argmax(logits[0, -1]))
         toks.append(nxt)
         out.append(nxt)

@@ -140,7 +140,7 @@ def test_ragged_decode_matches_reference(family):
     pos = np.asarray(lens, np.int32)
     dj, cache_j, _ = jmb.model.forward(jparams, {"tokens": jnp.asarray(nxt, jnp.int32)},
                                        cache=cache_j, positions=jnp.asarray(pos)[:, None])
-    dt, cache_t = tmb.model.forward(tparams, {"tokens": torch.from_numpy(nxt)}, cache=cache_t,
+    dt, cache_t, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(nxt)}, cache=cache_t,
                                     positions=torch.from_numpy(pos)[:, None])
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), **TOL)
     _assert_caches_equal(cache_t, cache_j)
@@ -176,7 +176,7 @@ def test_ring_prefill_of_at_least_smax_rows(ring, s):
     _, ct = tmb.prefill_fn(tparams, tb, max_len=32)
     _assert_caches_equal(ct, cj)
     dt, _ = tmb.decode_fn(tparams, ct, torch.from_numpy(toks[:, s:]), torch.tensor(s))
-    full, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(toks)})
+    full, _, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(dt[:, 0].numpy(), full[:, -1].numpy(), **TOL)
 
 
@@ -204,12 +204,12 @@ def test_padded_ring_prefill_keeps_the_references_behaviour(ring, n):
             cache = tmb.model.init_cache(1, 32, ragged=True, device="cpu")
             _, pre = tmb.prefill_fn(tparams, {"tokens": torch.from_numpy(padded)}, max_len=32)
             insert_prefix(cache, pre, 0, n)
-            lg, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(toks[:, n:])},
+            lg, _, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(toks[:, n:])},
                                       cache=cache, positions=torch.tensor([[n]]))
             outs.append(lg[:, 0].numpy())
     ref_out, port_out = outs
     np.testing.assert_allclose(port_out, ref_out, **TOL)
-    full, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(toks)})
+    full, _, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(toks)})
     assert np.abs(port_out - full[:, -1].numpy()).max() > 1e-2
 
 

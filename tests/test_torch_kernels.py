@@ -453,3 +453,65 @@ def test_decode_attention_cuda_split_edges(cuda, monkeypatch, dtype, split, hq, 
     split_ref = tref.decode_split_combine_ref(
         *tref.decode_split_partials_ref(q, k, v, length, split), q.dtype)
     np.testing.assert_allclose(_np(got.cpu()), _np(split_ref.cpu()), **_tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# the kernels under autograd, on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("label", ["smollm-135m", "zamba2-1.2b shared attention",
+                                   "windowed (Mixtral heads)", "MLA (DeepSeek-V3)", "ssd_scan"])
+def test_autograd_functions_match_plain_autograd(cuda, label, dtype):
+    """ops.flash_attention and ops.ssd_scan with inputs that require grad:
+    the hand-written forward (counted once under the body the shape
+    selects) inside its autograd Function, output and every gradient held
+    to the plain version's autograd in f32 at chip_smoke.py phase 11's
+    shapes and limits (f32: 1e-4 of the largest magnitude; bf16: the
+    row-scaled FAMILY_ROW_TOL), the windowed f32 case with its planted
+    control (a window one row short must fail)."""
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ssd
+
+    smoke = _chip_smoke()
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    dt = TORCH_DTYPES[dtype]
+    if label == "ssd_scan":
+        smoke.autograd_ssd_case(torch, ops, tref, ssd, gen, dt, smoke.TRAIN_SSD_CASE)
+    else:
+        smoke.autograd_flash_case(torch, ops, tref, fa, gen, label, dt,
+                                  smoke.TRAIN_FLASH_CASES[label])
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_raise_under_grad(cuda):
+    """No kernel output silently cuts the graph: the decode wrappers (no
+    training path, no backward) and the direct *_cuda calls of flash and
+    the SSD scan raise under grad mode with an input that requires grad;
+    under no_grad they launch."""
+    from repro_torch.kernels import decode_attention as dec, decode_attention_q8 as q8
+    from repro_torch.kernels import flash_attention as fa, ssd_scan as ssd
+
+    (q, k, v), _ = _inputs(21, "bfloat16", (2, 1, 4, 64), (2, 128, 2, 64), (2, 128, 2, 64))
+    q, k, v = q.to(cuda).requires_grad_(), k.to(cuda), v.to(cuda)
+    kq, ks = tref.quantize_kv(k)
+    vq, vs = tref.quantize_kv(v)
+    calls = {
+        "decode_attention": lambda: ops.decode_attention(q, k, v, length=100),
+        "decode_attention_cuda": lambda: dec.decode_attention_cuda(q, k, v, 100),
+        "decode_attention_q8": lambda: ops.decode_attention_q8(q, kq, ks, vq, vs, length=100),
+        "decode_attention_q8_cuda": lambda: q8.decode_attention_q8_cuda(q, kq, ks, vq, vs, 100),
+        "flash_attention_cuda": lambda: fa.flash_attention_cuda(q, k[:, :1].contiguous(),
+                                                                v[:, :1].contiguous(), False),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="has no backward"):
+            call()
+        with torch.no_grad():
+            assert call().grad_fn is None
+    x = torch.randn((1, 64, 2, 16), device=cuda, requires_grad=True)
+    dt = torch.rand((1, 64, 2), device=cuda)
+    A, B, C = -torch.ones(2, device=cuda), torch.randn((1, 64, 16), device=cuda), \
+        torch.randn((1, 64, 16), device=cuda)
+    with pytest.raises(RuntimeError, match="has no backward"):
+        ssd.ssd_scan_cuda(x, dt, A, B, C)
+    assert ops.ssd_scan(x, dt, A, B, C)[0].grad_fn is not None

@@ -274,7 +274,7 @@ def test_int8_prefill_and_ragged_decode_logits_match_reference(smollm):
         pos = np.asarray(lens, np.int32)
         rj, cache_j, _ = jmb.model.forward(jparams, {"tokens": jnp.asarray(nxt, jnp.int32)},
                                            cache=cache_j, positions=jnp.asarray(pos)[:, None])
-        rt, cache_t = tmb.model.forward(tparams, {"tokens": torch.from_numpy(nxt)},
+        rt, cache_t, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(nxt)},
                                         cache=cache_t, positions=torch.from_numpy(pos)[:, None])
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), **tol)
     _assert_int8_cache_close(cache_t["groups"][0]["attn"], cache_j["groups"][0]["attn"])

@@ -136,7 +136,7 @@ def test_prefill_and_ragged_decode_logits_match_reference(smollm):
     pos = np.asarray(lens, np.int32)
     dj, cache_j, _ = jmb.model.forward(jparams, {"tokens": jnp.asarray(nxt, jnp.int32)},
                                        cache=cache_j, positions=jnp.asarray(pos)[:, None])
-    dt, cache_t = tmb.model.forward(tparams, {"tokens": torch.from_numpy(nxt)}, cache=cache_t,
+    dt, cache_t, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(nxt)}, cache=cache_t,
                                     positions=torch.from_numpy(pos)[:, None])
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), **TOL)
     np.testing.assert_array_equal(cache_t["groups"][0]["attn"]["index"].numpy(),
@@ -160,7 +160,7 @@ def test_ragged_equals_uniform_when_lengths_equal(smollm):
         _, pref = mb.prefill_fn(params, {"tokens": toks[b:b + 1]}, max_len=32)
         insert_prefix(cache_r, pref, b, P)
     lengths = torch.full((B,), P, dtype=torch.int32)
-    logits2_r, _ = mb.model.forward(params, {"tokens": nxt_u[:, None]}, cache=cache_r,
+    logits2_r, _, _ = mb.model.forward(params, {"tokens": nxt_u[:, None]}, cache=cache_r,
                                     positions=lengths[:, None])
     np.testing.assert_allclose(logits2_r.numpy(), logits2_u.numpy(), rtol=2e-2, atol=2e-2)
 

@@ -148,7 +148,7 @@ def test_prefill_and_ragged_decode_logits_match_reference(zamba):
     pos = np.asarray(lens, np.int32)
     rj, cache_j, _ = jmb.model.forward(jparams, {"tokens": jnp.asarray(nxt, jnp.int32)},
                                        cache=cache_j, positions=jnp.asarray(pos)[:, None])
-    rt, cache_t = tmb.model.forward(tparams, {"tokens": torch.from_numpy(nxt)}, cache=cache_t,
+    rt, cache_t, _ = tmb.model.forward(tparams, {"tokens": torch.from_numpy(nxt)}, cache=cache_t,
                                     positions=torch.from_numpy(pos)[:, None])
     np.testing.assert_allclose(rt.numpy(), np.asarray(rj), **TOL)
     np.testing.assert_array_equal(cache_t["shared"]["attn"]["index"].numpy(),
