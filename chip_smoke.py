@@ -42,7 +42,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
      where it exceeds the device's; ``device_ms`` (and ``library_device_ms``
      for the PyTorch call) is the device's own time per call, the durations
      of the device kernels the calls launched, from a torch.profiler trace
-     of a second pass of the same 30 calls (``device_ms_source``).  The two
+     of a second pass of the same 30 calls (``device_ms_source``; "cuda
+     events" where the profiler lost every trace, see TRACE_ATTEMPTS).  The two
      attention kernels serve smollm-135m and zamba2-1.2b at different head
      layouts; their entries carry the zamba2 shapes' numbers under "zamba2".
      Each entry's ``launches_by_path`` also counts phase 8's and phase 7's
@@ -107,7 +108,20 @@ Phases, each of which passes or raises (any failure exits non-zero):
      step (6 Mamba-2 layers, TRAIN_ZAMBA2) with its SSD and flash launches
      counted; printed as a ``{"training": ...}`` JSON line, and the
      ``kernels`` line counts (b)'s launches under
-     ``launches_by_path["training"]``.
+     ``launches_by_path["training"]``;
+ 12. distribution (``phase_distribution``): phase 11 (b)'s run again, through
+     ``torch.distributed.run`` on one NCCL rank (launch/train.py joins the
+     launcher's process group and takes a one-rank mesh, on which every
+     tensor stays plain), 50 steps with a checkpoint at step 49, then a
+     relaunch that resumes from it to step 100: every step's loss against
+     phase 11 (b)'s uninterrupted run within DIST_RESUME_REL, and the two
+     launches' kernel counts (each launch's --report) together equal to
+     phase 11 (b)'s (flash 6000, all through the tensor cores); printed as
+     a ``{"distribution": ...}`` JSON line.  Ranks that share the card over
+     gloo are not run: DTensor's all-gather (the functional
+     ``all_gather_into_tensor``) crashes there with CUDA tensors
+     (tools/gloo_cuda_collectives.py), so the sharded step is held to the
+     unsharded one on gloo CPU ranks (tests/test_torch_distributed*.py).
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing any
 result.
@@ -240,12 +254,17 @@ FAMILY_PHASE_TARGET_S = 300.0
 #: lost or gained moves a row of n keys by about sqrt(64 / n) of its rms
 #: (0.125 at 4096), and the planted controls show that it fails.
 FAMILY_ROW_TOL, FAMILY_ROUND = 0.03, 2.0 ** -8
-#: torch.profiler traces taken before a kernel's device time is given up.
-#: About one fresh session in 600 on an H100 (torch 2.11) records no device
-#: kernel while all its launches are on the CPU side, with or without a
-#: pause before it ends (tools/profiler_trace_loss.py): a loss inside the
-#: profiler's collection, so an empty trace is taken again.
+#: torch.profiler traces taken before a kernel's device time falls back to
+#: CUDA events.  About one fresh session in 600 on an H100 (torch 2.11)
+#: records no device kernel while all its launches are on the CPU side, with
+#: or without a pause before it ends (tools/profiler_trace_loss.py): a loss
+#: inside the profiler's collection, so an empty trace is taken again.  The
+#: losses can come in a run of consecutive sessions (three in a row at one
+#: decode shape on an H100), so after TRACE_ATTEMPTS empty traces the time
+#: is read from CUDA events around the same calls instead (an upper bound on
+#: the device's time: it includes the gaps between launches).
 TRACE_ATTEMPTS = 3
+TRACE_RETRY_PAUSE_S = 0.2
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -291,8 +310,9 @@ def device_ms(fn, inputs, names=(), iters: int = 30):
     ``iters`` calls launch (only those whose names contain one of ``names``,
     where given), from a torch.profiler trace.  Returns (ms, source, ms per
     call by kernel name).  A trace that holds no such device event is taken
-    again, up to TRACE_ATTEMPTS traces in all (see there); raises if none
-    holds one."""
+    again after a pause, up to TRACE_ATTEMPTS traces in all; if none holds
+    one, the time is CUDA events' around ``iters`` calls (source "cuda
+    events", one entry for the whole call; see TRACE_ATTEMPTS)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -310,8 +330,11 @@ def device_ms(fn, inputs, names=(), iters: int = 30):
             break
         log(f"  device time: trace {attempt} of {TRACE_ATTEMPTS} recorded no device kernel "
             f"{names}")
+        time.sleep(TRACE_RETRY_PAUSE_S)
     else:
-        raise AssertionError(f"device time: the profiler recorded no device kernel {names}")
+        ms = time_ms(fn, inputs, iters)
+        log(f"  device time: {ms:.4f} ms per call from CUDA events instead")
+        return ms, "cuda events", {"+".join(names) or "whole call": ms}
     by_name = {}
     for e in events:
         key = e.name[:80]
@@ -2435,6 +2458,101 @@ def phase_training(torch, F, ops, ref, _build, fa, ssd):
                 seconds=total), both, times
 
 
+#: phase 12 (a): phase 11 (b)'s run (TRAIN_ARGS) through torchrun on one
+#: NCCL rank, cut at DIST_RESUME_AT (its checkpoint at step 49) and
+#: relaunched to the end; the resumed steps are held to phase 11 (b)'s
+#: uninterrupted losses within DIST_RESUME_REL
+DIST_RESUME_AT = 50
+DIST_RESUME_REL = 1e-3
+DIST_PHASE_TARGET_S = 90.0
+
+
+def dist_resume_run(steps: int, ckpt: str, report: str) -> dict:
+    """launch/train.py through torchrun on one rank (NCCL) with TRAIN_ARGS,
+    to ``steps``, checkpoints in ``ckpt``; returns its --report JSON."""
+    args = list(TRAIN_ARGS)
+    args[args.index("--steps") + 1] = str(steps)
+    if os.path.exists(report):
+        os.remove(report)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "1", "-m", "repro_torch.launch.train", *args, "--ckpt-dir", ckpt, "--ckpt-every",
+           str(DIST_RESUME_AT), "--report", report]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    secs = time.perf_counter() - t0
+    # the launcher exits 1 when a run's loss did not fall; the report is
+    # written only by a run that reached its end
+    if not os.path.exists(report):
+        raise AssertionError(f"torchrun launch/train.py to step {steps} failed (exit "
+                             f"{out.returncode}):\n{out.stderr[-3000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    rep["wall_s"] = secs
+    for line in out.stdout.splitlines():
+        if line.startswith(("arch=", "resumed")):
+            log(f"    {line}")
+    return rep
+
+
+def phase_distribution(torch, training: dict) -> dict:
+    """Phase 12: phase 11 (b)'s training through torchrun on one NCCL rank,
+    cut at step DIST_RESUME_AT and resumed from its checkpoint: the resumed
+    steps' losses against phase 11 (b)'s uninterrupted run, and the launches
+    of both launches together against phase 11 (b)'s.  Several ranks sharing
+    the card over gloo are not run here: DTensor's all-gather crashes on
+    gloo with CUDA tensors (tools/gloo_cuda_collectives.py).  Returns the
+    {"distribution": ...} summary."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "phase12")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    log("phase 12: launch/train.py through torchrun (one NCCL rank), cut and resumed")
+    ckpt = os.path.join(work, "ckpt")
+    first = dist_resume_run(DIST_RESUME_AT, ckpt, os.path.join(work, "run1.json"))
+    second = dist_resume_run(int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1]), ckpt,
+                             os.path.join(work, "run2.json"))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    whole = training["smollm"]["losses"]
+    if first["world"] != 1 or second["world"] != 1 or second["start"] != DIST_RESUME_AT:
+        raise AssertionError(f"phase 12: worlds {first['world']}/{second['world']}, "
+                             f"resumed at {second['start']}")
+    resumed = second["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(resumed, whole[DIST_RESUME_AT:])]
+    if len(resumed) != len(whole) - DIST_RESUME_AT or max(rel) > DIST_RESUME_REL:
+        raise AssertionError(f"phase 12: the resumed losses drift from phase 11 (b)'s "
+                             f"uninterrupted run by up to {max(rel):.3e}")
+    # the first launch's steps are phase 11 (b)'s too (one rank keeps every
+    # tensor plain)
+    rel_first = [abs(a - b) / abs(b) for a, b in zip(first["losses"], whole)]
+    if len(first["losses"]) != DIST_RESUME_AT or max(rel_first) > DIST_RESUME_REL:
+        raise AssertionError(f"phase 12: the first launch's losses drift from phase 11 "
+                             f"(b)'s by up to {max(rel_first):.3e}")
+    cfg = get_config(SMOLLM)
+    want_flash = cfg.n_layers * len(whole) * 2
+    both = {n: first["launches"].get(n, 0) + second["launches"].get(n, 0)
+            for n in set(first["launches"]) | set(second["launches"])}
+    for n, want in (("flash_attention", want_flash), ("flash_attention.tc", want_flash),
+                    ("decode_attention", 0), ("decode_attention_q8", 0), ("ssd_scan", 0)):
+        require(both, n, both.get(n, 0) == want, str(want))
+    medians = [sorted(r["step_seconds"][1:])[len(r["step_seconds"][1:]) // 2]
+               for r in (first, second)]
+    shutil.rmtree(work, ignore_errors=True)
+    total = time.perf_counter() - t0
+    log(f"  steps 0-{DIST_RESUME_AT - 1}: max loss drift {max(rel_first):.3e}; resumed steps "
+        f"{DIST_RESUME_AT}-{len(whole) - 1}: {max(rel):.3e} (limit {DIST_RESUME_REL:g}); "
+        f"launches {both}; walls {first['wall_s']:.1f} s + {second['wall_s']:.1f} s, median "
+        f"steps {medians[0]:.4f} / {medians[1]:.4f} s")
+    log(f"phase 12: {total:.1f} s (target {DIST_PHASE_TARGET_S:g})")
+    return dict(args=TRAIN_ARGS, resume_at=DIST_RESUME_AT, max_loss_rel_first=max(rel_first),
+                max_loss_rel_resumed=max(rel), losses=[first["losses"], resumed],
+                launches=both, expected_flash=want_flash,
+                wall_s=[first["wall_s"], second["wall_s"]], median_step_s=medians,
+                seconds=total)
+
+
 def main() -> int:
     import torch
 
@@ -2481,6 +2599,8 @@ def main() -> int:
     entries[0]["families"], entries[1]["families"] = fam_flash, fam_decode
     torch.cuda.empty_cache()
     training, train_counts, train_times = phase_training(torch, F, ops, ref, _build, fa, ssd)
+    torch.cuda.empty_cache()
+    distribution = phase_distribution(torch, training)
     for e in entries:
         e["launches_by_path"]["training"] = train_counts.get(e["name"], 0)
         if e["name"] in train_times:
@@ -2521,6 +2641,7 @@ def main() -> int:
     log(json.dumps({"fleet": fleet}))
     log(json.dumps({"families": families}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"distribution": distribution}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,11 @@ tensor the plain versions.  Norms and logits are computed in f32.
 
 ``set_kv_quant(True)`` makes caches built afterwards hold int8 K/V with an
 f32 scale per (token, head), as the reference's switch of the same name.
+
+``hint`` marks activations with logical axes where the reference does.
+Under a mesh it redistributes a ``DTensor`` to the placements the sharding
+rules give; on a plain tensor, or outside a mesh, it returns its input, so
+the forward outside a mesh is unchanged.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distribution import sharding
 from ..kernels import ops as kops
 from ..kernels.ref import quantize_kv
 
@@ -27,6 +33,13 @@ _NEG = -1e30  # the reference's mask value
 
 #: int8 KV-cache quantization, read when a cache is built (non-ring GQA caches)
 _KV_QUANT = {"enabled": False}
+
+
+# ---------------------------------------------------------------------------
+# sharding hints (no-ops outside a mesh; see distribution.sharding)
+# ---------------------------------------------------------------------------
+def hint(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    return sharding.constrain(x, logical_axes)
 
 
 def set_kv_quant(enabled: bool) -> None:
@@ -88,7 +101,12 @@ def apply_rope(
 # GQA attention
 # ---------------------------------------------------------------------------
 def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+    """(B,S,H*hd) -> (B,S,H,hd).  A DTensor whose last dim is sharded over
+    more ranks than there are heads is replicated there first: DTensor does
+    not split a shard across a reshape, where GSPMD would."""
     b, s, _ = x.shape
+    if sharding.splits_heads(x, n_heads):
+        x = hint(x, "batch", "seq", None)
     return x.reshape(b, s, n_heads, hd)
 
 
@@ -119,6 +137,7 @@ def attention(
     hd = cfg.head_dim_
     b, s, _ = x.shape
     q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
+    q = hint(q, "batch", "seq", "heads", None)
     k = _split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
     v = _split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
     sin, cos = rope_tables(positions, hd, cfg.rope_theta)
@@ -171,7 +190,9 @@ def attention(
         else:
             out = kops.decode_attention(q, cache["k"], cache["v"], length=idx + 1)
         idx.add_(s)
-    return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    out = hint(out, "batch", "seq", "heads", None)
+    y = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    return hint(y, "batch", "seq", None)
 
 
 def cross_attention(
@@ -270,7 +291,8 @@ def mla_attention(
         k = torch.cat([kv[..., :nope], k_pe[:, :, None, :].expand(b, s, h, rope_d)], dim=-1)
         v = kv[..., nope:].contiguous()
         out = kops.flash_attention(torch.cat([q_nope, q_pe], dim=-1), k, v, causal=True)
-    return out.reshape(b, s, h * vh) @ p["wo"]
+    y = out.reshape(b, s, h * vh) @ p["wo"]
+    return hint(y, "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +305,7 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = torch.square(F.relu(x @ p["w_in"]))
     else:  # gelu; jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ p["w_in"], approximate="tanh")
+    h = hint(h, "batch", "seq", "mlp")
     return h @ p["w_out"]
 
 
@@ -290,9 +313,9 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 # embeddings / LM head
 # ---------------------------------------------------------------------------
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    return hint(table[tokens], "batch", "seq", None)
 
 
 def lm_logits(table_or_w: torch.Tensor, x: torch.Tensor, tied: bool) -> torch.Tensor:
     w = table_or_w.T if tied else table_or_w
-    return x.float() @ w.float()
+    return hint(x.float() @ w.float(), "batch", "seq", "vocab")

@@ -1,6 +1,8 @@
 """Mixture-of-Experts layer: router + capacity-bounded expert dispatch.
-Counterpart of ``repro/models/moe.py`` (its ``"dispatch"`` mode; the
-all-to-all expert-parallel mode is not ported).
+Counterpart of ``repro/models/moe.py``.  ``set_moe_impl`` picks the mode:
+``"dispatch"`` (default, below) or ``"alltoall"``, the expert-parallel
+layer of ``distribution/moe_ep.py``, which falls back to dispatch where no
+mesh applies.
 
 GShard/MaxText-style grouped one-hot dispatch: tokens are split into G
 groups of about 1024; dispatch and combine are dense einsums over
@@ -21,7 +23,19 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from . import layers
 
-__all__ = ["apply_moe"]
+__all__ = ["apply_moe", "set_moe_impl", "get_moe_impl"]
+
+_MOE_IMPL = {"mode": "dispatch"}
+
+
+def set_moe_impl(mode: str) -> None:
+    if mode not in ("dispatch", "alltoall"):
+        raise ValueError(f"set_moe_impl: 'dispatch' or 'alltoall', got {mode!r}")
+    _MOE_IMPL["mode"] = mode
+
+
+def get_moe_impl() -> str:
+    return _MOE_IMPL["mode"]
 
 
 def _route(p: Dict[str, Any], xt: torch.Tensor, cfg: ArchConfig):
@@ -62,7 +76,12 @@ def apply_moe(
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     gates, eidx, aux = _route(p, xt, cfg)
-    y = _apply_dispatch(p, xt, gates, eidx, cfg)
+    if _MOE_IMPL["mode"] == "alltoall":
+        from ..distribution import moe_ep
+
+        y = moe_ep.apply_moe_alltoall(p, xt, gates, eidx, cfg)
+    else:
+        y = _apply_dispatch(p, xt, gates, eidx, cfg)
     if "shared" in p:
         y = y + layers.apply_mlp(p["shared"], xt, "swiglu")
     return y.reshape(b, s, d).to(x.dtype), aux
@@ -80,9 +99,10 @@ def _apply_dispatch(p, xt: torch.Tensor, gates: torch.Tensor, eidx: torch.Tensor
 
     eidx_g = eidx.reshape(g, tg, k)
     gates_g = gates.reshape(g, tg, k)
-    x_g = xt.reshape(g, tg, d)
+    x_g = layers.hint(xt.reshape(g, tg, d), "batch", None, None)
 
     onehot = F.one_hot(eidx_g, e).float()  # (g, tg, k, e)
+    onehot = layers.hint(onehot, "batch", None, None, "experts")
     # position of each slot within its expert's buffer (token-major
     # priority): an exclusive cumsum, exact in f32 below 2**24
     flat = onehot.reshape(g, tg * k, e)
@@ -95,10 +115,12 @@ def _apply_dispatch(p, xt: torch.Tensor, gates: torch.Tensor, eidx: torch.Tensor
     gate_te = (gates_g[..., None] * keep).sum(2)
 
     dispatch = F.one_hot(pos_te, cap).float() * sel[..., None]  # (g, tg, e, cap)
+    dispatch = layers.hint(dispatch, "batch", None, "experts", None)
     combine = dispatch * gate_te[..., None]
 
     dt = xt.dtype
     expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(dt), x_g)
-    expert_out = _expert_ffn(p["experts"], expert_in.transpose(0, 1))  # (e, g, cap, d)
+    expert_in = layers.hint(expert_in.transpose(0, 1), "experts", "batch", None, None)
+    expert_out = _expert_ffn(p["experts"], expert_in)  # (e, g, cap, d)
     y = torch.einsum("gtec,gecd->gtd", combine.to(dt), expert_out.transpose(0, 1))
     return y.reshape(t, d)

@@ -332,7 +332,10 @@ class Model:
 
 
 def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean token cross-entropy of f32 logits."""
+    """Masked mean token cross-entropy of f32 logits.  Under a mesh the
+    vocab-sharded logits are gathered over ``model`` first: DTensor's
+    ``gather`` along a sharded dim is not exact."""
+    logits = layers.hint(logits, "batch", "seq", None)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = (logz - gold) * mask

@@ -1,4 +1,4 @@
-"""Fault-tolerant checkpointing: atomic, resumable, asynchronous.
+"""Fault-tolerant checkpointing: atomic, resumable, elastic, asynchronous.
 Counterpart of ``repro/training/checkpoint.py``, in its file format, so that
 a checkpoint written by either package restores in the other:
 
@@ -14,11 +14,17 @@ a checkpoint written by either package restores in the other:
 * resumable — ``latest_step`` / ``restore`` let ``launch/train.py`` resume
   after a failure; the data pipeline is a pure function of the step, so the
   resumed run consumes the same batches;
+* elastic — ``restore(..., shardings=(param specs, opt specs))`` places
+  each leaf onto the current mesh as a DTensor, so a checkpoint written on
+  N ranks restores on M (the file holds whole leaves);
 * async — ``save(..., blocking=False)`` copies the leaves to host memory at
   once and writes them to disk on a background thread; ``wait`` joins it.
 
-``restore`` places the leaves on one ``device``; the reference's elastic
-re-shard onto another mesh comes with the distribution layer.
+Under a process group of several ranks every rank calls ``save``: each
+gathers the DTensor leaves whole (``full_tensor``, a collective) before any
+thread starts, since no collective runs in the writer thread, and only rank
+0 writes.  A blocking save ends in a barrier, so every rank sees the
+published step.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..tree import tree_unflatten
 
@@ -51,7 +58,12 @@ def _items(tree: Any, path: Tuple[str, ...] = ()):
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy (never a view of the leaf: an async write outlives it)."""
+    """A host copy (never a view of the leaf: an async write outlives it);
+    a DTensor is gathered whole first."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
@@ -95,8 +107,15 @@ class CheckpointManager:
         flat = {"params" + _SEP + k: v for k, v in _flatten(params).items()}
         flat.update({"opt" + _SEP + k: v for k, v in _flatten(opt_state).items()})
         self.wait()
+        many = dist.is_initialized() and dist.get_world_size() > 1
+        if many and dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return
         if blocking:
             self._write(step, flat)
+            if many:
+                dist.barrier()
         else:
             self._thread = threading.Thread(target=self._write, args=(step, flat))
             self._thread.start()
@@ -134,14 +153,26 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, params_template: Any, opt_template: Any,
-                device=None) -> Tuple[Any, Any]:
+                device=None, shardings: Optional[Tuple[Any, Any]] = None
+                ) -> Tuple[Any, Any]:
         """The checkpoint of ``step`` in the templates' structure, each leaf
         in its template's dtype, on ``device`` (default: each template
-        leaf's own device; a ``meta`` template needs a device)."""
+        leaf's own device; a ``meta`` template needs a device).  With
+        ``shardings`` = (param specs, opt-state specs) the leaves are placed
+        onto the mesh of ``sharding.use_mesh`` as DTensors with those specs:
+        the elastic restore."""
         path = os.path.join(self.dir, f"step-{step:09d}", "state.npz")
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
         pre_p, pre_o = "params" + _SEP, "opt" + _SEP
         pf = {k[len(pre_p):]: v for k, v in flat.items() if k.startswith(pre_p)}
         of = {k[len(pre_o):]: v for k, v in flat.items() if k.startswith(pre_o)}
-        return _unflatten(params_template, pf, device), _unflatten(opt_template, of, device)
+        params = _unflatten(params_template, pf, device)
+        opt_state = _unflatten(opt_template, of, device)
+        if shardings is None:
+            return params, opt_state
+        from ..distribution import sharding
+
+        mesh = sharding.current()["mesh"]
+        return (sharding.distribute(params, shardings[0], mesh),
+                sharding.distribute(opt_state, shardings[1], mesh))

@@ -7,8 +7,8 @@ batches a never-failed run would.  The token stream has learnable structure
 (a noisy modular-affine sequence), so small models show a falling loss
 within a few hundred steps.  The numpy draw is the reference's, call for
 call, so the batches equal the reference's bit for bit, frontend inputs
-included.  (Sharding a batch over devices comes with the distribution
-layer.)
+included.  ``shard_batch`` places a batch on a mesh: every rank draws the
+same global batch and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["DataConfig", "get_batch"]
+__all__ = ["DataConfig", "get_batch", "shard_batch"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -57,3 +57,27 @@ def get_batch(cfg: DataConfig, step: int, device="cuda") -> Dict[str, torch.Tens
         # float64 rounded once to the dtype, as jnp.asarray(..., dtype=) does
         batch[name] = torch.from_numpy(emb).to(device=dev, dtype=_DTYPES[cfg.dtype])
     return batch
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], mesh, batch_axes=("pod", "data")):
+    """The global ``batch`` (the same on every rank) as DTensors on ``mesh``,
+    the batch dim sharded over ``batch_axes`` (those the mesh has): each rank
+    keeps its own block of rows and nothing is sent.  On a mesh of one rank
+    the batch comes back unchanged."""
+    from ..distribution import sharding
+
+    if sharding.is_trivial(mesh):
+        return batch
+    sizes = sharding.mesh_axes(mesh)
+    axes = tuple(a for a in batch_axes if a in sizes)
+    ways = 1
+    for a in axes:
+        ways *= sizes[a]
+    entry = None if not axes else (axes[0] if len(axes) == 1 else axes)
+    out = {}
+    for k, x in batch.items():
+        if x.shape[0] % ways:
+            raise ValueError(f"shard_batch: {k} has {x.shape[0]} rows, not a multiple "
+                             f"of the {ways} ranks of {axes}")
+        out[k] = sharding.distribute(x, (entry,) + (None,) * (x.dim() - 1), mesh)
+    return out

@@ -43,21 +43,31 @@ class AdamWConfig:
 # ---------------------------------------------------------------------------
 # int8 block quantization (per leading-row scale)
 # ---------------------------------------------------------------------------
-def _rows(x: torch.Tensor) -> torch.Tensor:
-    return x.reshape(x.shape[0], -1) if x.dim() > 1 else x.reshape(1, -1)
+def _row_dims(x: torch.Tensor):
+    """The dims one scale spans: all but the leading row (a 1-D leaf is one
+    row)."""
+    return tuple(range(1, x.dim())) if x.dim() > 1 else (0,)
+
+
+def _n_rows(x: torch.Tensor) -> int:
+    return x.shape[0] if x.dim() > 1 else 1
 
 
 def _q8(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Symmetric int8 quantization with one f32 scale per row (axis 0 kept):
-    {"q": int8 like x, "scale": f32 (rows, 1)}."""
-    flat = _rows(x.float())
-    scale = flat.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-20
-    q = torch.clamp(torch.round(flat / scale), -127, 127).to(torch.int8)
-    return {"q": q.reshape(x.shape), "scale": scale}
+    {"q": int8 like x, "scale": f32 (rows, 1)}.  The amax runs over the
+    row's dims in place, never through a reshape: on a DTensor that shards
+    them it is one all-reduce of the maxima."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=_row_dims(x), keepdim=True) / 127.0 + 1e-20
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale.reshape(_n_rows(x), 1)}
 
 
 def _dq8(packed: Dict[str, torch.Tensor], shape) -> torch.Tensor:
-    return (_rows(packed["q"].float()) * packed["scale"]).reshape(shape)
+    q = packed["q"]
+    lead = (_n_rows(q),) + (1,) * (q.dim() - 1) if q.dim() > 1 else (1,)
+    return q.float() * packed["scale"].reshape(lead)
 
 
 def _encode_moment(x: torch.Tensor, dtype: str):
@@ -96,8 +106,8 @@ def _moment_leaves(tree):
 # ---------------------------------------------------------------------------
 def init(params: Params, cfg: AdamWConfig) -> Params:
     def zero_like(p):
-        return _encode_moment(torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                              cfg.moment_dtype)
+        # zeros_like keeps a DTensor's placements: each rank makes its shard
+        return _encode_moment(torch.zeros_like(p, dtype=torch.float32), cfg.moment_dtype)
 
     device = next(iter(tree_leaves(params))).device
     return {
