@@ -36,7 +36,8 @@ Phases, each of which passes or raises (any failure exits non-zero):
      launches in phase 4, its time, its plain version's time, one PyTorch
      call's time where one computes the same function (the attention
      kernels: F.scaled_dot_product_attention, a yardstick the port never
-     calls) and the least time the card could take (bound_ms).  ``ms``,
+     calls) and the least time the card could take (bound_ms, of the work
+     ``repro_torch.kernels.cost`` counts for the launch).  ``ms``,
      ``plain_ms`` and ``library_ms`` are CUDA-event means over 30
      back-to-back Python calls, so they include the host's time per call
      where it exceeds the device's; ``device_ms`` (and ``library_device_ms``
@@ -121,7 +122,21 @@ Phases, each of which passes or raises (any failure exits non-zero):
      gloo are not run: DTensor's all-gather (the functional
      ``all_gather_into_tensor``) crashes there with CUDA tensors
      (tools/gloo_cuda_collectives.py), so the sharded step is held to the
-     unsharded one on gloo CPU ranks (tests/test_torch_distributed*.py).
+     unsharded one on gloo CPU ranks (tests/test_torch_distributed*.py);
+ 13. the static cost analysis (``phase_cost_analysis``): (a) the dry-run
+     (``python -m repro_torch.launch.dryrun``) of smollm-135m's four shapes
+     on a fake 256-rank pod16x16 process group over ``meta`` tensors, in a
+     subprocess started before phase 11: train, prefill and decode "ok",
+     long_500k skipped; their roofline terms against the H100's datasheet
+     peaks, the dominant term and the useful ratio printed, and each cell's
+     counted FLOPs x 256 within COST_FLOPS_REL of the analytic count
+     (``smollm_analytic_flops``); (b) one rank at phase 11 (b)'s
+     shape counted on ``meta``: the flash calls it books a step equal to
+     the launches a step phase 11 measured (all ``.tc``) and to one real
+     step's, its memory (arguments + peak) within COST_MEM_RANGE of the rise
+     in ``max_memory_allocated`` over one real step, and its roofline bound
+     as a share of phase 11 (b)'s median step (reported); printed as a
+     ``{"cost_analysis": ...}`` JSON line.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing any
 result.
@@ -1596,46 +1611,40 @@ def calibration_formulas(kernel: str, shape: dict, b: int):
 def time_calibration_shape(torch, F, wl, plain, launches: int) -> dict:
     """One calibration workload at its whole-device shape (f32, as the
     profiler runs it): ms, device_ms, plain_ms, library_ms (SDPA for the
-    attention kernels) and the bound against the float32 peak, counting
-    what these inputs need (decode: the rows up to each length; the SSD
-    scan: its recurrence, 4 P N per step and head)."""
+    attention kernels) and the bound against the float32 peak, of the work
+    ``kernels.cost`` counts on these inputs (decode: the rows up to each
+    length)."""
+    from repro_torch.kernels import cost
+
     cuda = torch.device("cuda")
     fn, args = wl.make(cuda)
     n_sets = copies_past_l2(sum(a.numel() * a.element_size() for a in args))
     sets = [args] + [wl.make(cuda)[1] for _ in range(n_sets - 1)]
     library, names = None, ()
     if wl.kernel == "flash_attention":
-        b, s, hq, d = args[0].shape
-        hkv = args[1].shape[2]
         names = ("fa_fwd_kernel", "fa_tc_kernel")
-        pairs = s * (s + 1) // 2  # causal (q, k) pairs per head
-        nbytes, flops = 4 * (2 * b * s * hq * d + 2 * b * s * hkv * d), 2 * b * hq * pairs * (d + d)
+        work = cost.flash_attention(*args, True)
 
         def library(q, k, v):
             return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                   v.transpose(1, 2), is_causal=True, enable_gqa=True)
     elif wl.kernel == "decode_attention":
-        b, _, hq, d = args[0].shape
-        smax, hkv = args[1].shape[1:3]
-        rows = int(args[3].clamp(max=smax).sum())
+        smax = args[1].shape[1]
         names = ("decode_split_kernel", "decode_combine_kernel")
-        nbytes, flops = 4 * (rows * hkv * 2 * d + 2 * b * hq * d) + 4 * b, 2 * hq * rows * 2 * d
+        work = cost.decode_attention(*args[:3], lengths=args[3].tolist())
         mask = (torch.arange(smax, device=cuda)[None, :] < args[3][:, None])[:, None, None, :]
 
         def library(q, k, v, lens):
             return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                                   v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
     else:
-        b, s, h, p = args[0].shape
-        n = args[3].shape[-1]
         names = ("ssd_kernel<", "ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                  "ssd_chunk_scan_kernel")
-        nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n + b * h * p * n)
-        flops = b * h * 4 * s * p * n
+        work = cost.ssd_scan(*args)
     out = dict(shape=f"{wl.shape} float32", launches=launches,
                ms=time_ms(fn, sets), plain_ms=time_ms(plain, sets, iters=5),
                library_ms=None if library is None else time_ms(library, sets),
-               **device_times(fn, names, library, sets), **bound(nbytes, flops, F32_FLOPS))
+               **device_times(fn, names, library, sets), **bound(*work, F32_FLOPS))
     del sets, args
     return out
 
@@ -1745,7 +1754,10 @@ def phase_calibration(torch, F, ops, ref):
     return summary, counts, pm, times
 
 
-def bound(nbytes: int, flops: int, peak: float = BF16_FLOPS) -> dict:
+def bound(flops: int, nbytes: int, peak: float = BF16_FLOPS) -> dict:
+    """The least time of a launch: its bytes over the HBM rate or its
+    operations over ``peak``, whichever is longer; ``bound(*work)`` for a
+    ``kernels.cost.Work``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
@@ -1780,11 +1792,13 @@ def simt_times(fn, names, want, sets) -> dict:
 
 def time_flash(torch, F, ref, fa, _build, gen, s, hq, hkv, d=64, b=1):
     """flash_attention on bf16 q (b,s,hq,d), k/v (b,s,hkv,d), causal."""
+    from repro_torch.kernels import cost
+
     shapes = ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))
-    per_set = sum(math.prod(x) for x in shapes) * 2 + b * s * hq * d * 2
+    work = cost.flash_attention(*(torch.empty(x, dtype=torch.bfloat16, device="meta")
+                                  for x in shapes), True)
     sets = [tuple(torch.randn(x, generator=gen, device="cuda").to(torch.bfloat16)
-                  for x in shapes) for _ in range(copies_past_l2(per_set))]
-    pairs = s * (s + 1) // 2  # causal (q, k) pairs per head
+                  for x in shapes) for _ in range(copies_past_l2(work.bytes))]
     q, k, v = sets[0]
 
     def kernel(q, k, v):
@@ -1810,17 +1824,20 @@ def time_flash(torch, F, ref, fa, _build, gen, s, hq, hkv, d=64, b=1):
         plain_ms=time_ms(lambda q, k, v: ref.attention_ref(q, k, v, True), sets),
         library_ms=time_ms(library, sets),
         **device_times(kernel, ("fa_tc_kernel", "fa_fwd_kernel"), library, sets),
-        **bound(per_set, 2 * b * hq * pairs * (d + d)),
+        **bound(*work),
     )
 
 
 def time_decode(torch, F, ref, dec, gen, lens, hq, hkv, d=64, smax=2048):
     """decode_attention on bf16 q (B,1,hq,d) against a (B,smax,hkv,d) cache
-    at per-slot lengths ``lens``; bytes count only the rows up to each length."""
+    at per-slot lengths ``lens``; bytes count only the rows up to each length
+    (a ring's length runs past Smax: its rows stop there)."""
+    from repro_torch.kernels import cost
+
     bsz = len(lens)
     shapes = ((bsz, 1, hq, d), (bsz, smax, hkv, d), (bsz, smax, hkv, d))
-    rows = sum(min(n, smax) for n in lens)  # a ring's length runs past Smax
-    per_set = rows * hkv * (d + d) * 2 + 2 * bsz * hq * d * 2 + bsz * 4
+    work = cost.decode_attention(*(torch.empty(x, dtype=torch.bfloat16, device="meta")
+                                   for x in shapes), lengths=lens)
     length = torch.tensor(lens, dtype=torch.int32, device="cuda")
     mask = (torch.arange(smax, device="cuda")[None, :] < length[:, None])[:, None, None, :]
     sets = [tuple(torch.randn(x, generator=gen, device="cuda").to(torch.bfloat16) for x in shapes)
@@ -1842,7 +1859,7 @@ def time_decode(torch, F, ref, dec, gen, lens, hq, hkv, d=64, smax=2048):
         plain_ms=time_ms(lambda q, k, v: ref.decode_attention_ref(q, k, v, length), sets),
         library_ms=time_ms(library, sets),
         **device_times(kernel, ("decode_split_kernel", "decode_combine_kernel"), library, sets),
-        **bound(per_set, 2 * hq * rows * (d + d)),
+        **bound(*work),
     )
 
 
@@ -1851,10 +1868,13 @@ def time_flash_case(torch, F, ref, fa, gen, b, sq, sk, hq, hkv, d, dv, causal, w
     at one of phase 10's shapes.  Operations count the (query, key) pairs
     the mask leaves (end-aligned causal mask, window); the library call is
     SDPA with that mask."""
+    from repro_torch.kernels import cost
+
     shapes = ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, dv))
-    per_set = (sum(math.prod(x) for x in shapes) + b * sq * hq * dv) * 2
+    work = cost.flash_attention(*(torch.empty(x, dtype=torch.bfloat16, device="meta")
+                                  for x in shapes), causal, window)
     sets = [tuple(torch.randn(x, generator=gen, device="cuda").to(torch.bfloat16)
-                  for x in shapes) for _ in range(copies_past_l2(per_set))]
+                  for x in shapes) for _ in range(copies_past_l2(work.bytes))]
     qpos = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
     kpos = torch.arange(sk, device="cuda")[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device="cuda")
@@ -1862,7 +1882,6 @@ def time_flash_case(torch, F, ref, fa, gen, b, sq, sk, hq, hkv, d, dv, causal, w
         mask &= kpos <= qpos
     if window:
         mask &= kpos > qpos - window
-    pairs = int(mask.sum())
     plain_iters = 30 if b * hq * sq * sk < 2**28 else 5  # the plain version materializes scores
     q, k, v = sets[0]
 
@@ -1886,7 +1905,7 @@ def time_flash_case(torch, F, ref, fa, gen, b, sq, sk, hq, hkv, d, dv, causal, w
         ms=time_ms(kernel, sets), plain_ms=time_ms(plain, sets, iters=plain_iters),
         library_ms=time_ms(library, sets),
         **device_times(kernel, ("fa_tc_kernel", "fa_fwd_kernel"), library, sets),
-        **bound(per_set, 2 * b * hq * pairs * (d + dv)),
+        **bound(*work),
     )
 
 
@@ -1922,16 +1941,16 @@ def time_ssd_case(torch, ref, _build, ssd, gen, b, s, h, p, n, simt: bool = True
     initial state: the kernel against its plain version, their times, the
     device time and the bound; with ``simt``, the CUDA-core body at the same
     shape too."""
-    per_set = (b * s * h * p * 2 * 2 + b * s * h * 4 + h * 4 + b * s * n * 2 * 2
-               + b * h * p * n * 4 * 2)  # x, y; dt; A; B, C; h0, hT
-    n_sets = copies_past_l2(per_set)
+    from repro_torch.kernels import cost
+
+    meta = [torch.empty(x, dtype=dt, device="meta") for x, dt in (
+        ((b, s, h, p), torch.bfloat16), ((b, s, h), torch.float32), ((h,), torch.float32),
+        ((b, s, n), torch.bfloat16), ((b, s, n), torch.bfloat16),
+        ((b, h, p, n), torch.float32))]
+    work = cost.ssd_scan(*meta)  # x, y; dt; A; B, C; h0, hT
+    n_sets = copies_past_l2(work.bytes)
     sets = [ssd_inputs(torch, gen, torch.bfloat16, b, s, h, p, n)
             + (torch.zeros((b, h, p, n), device="cuda"),) for _ in range(n_sets)]
-    tile = 64  # the kernel's time tile
-    pairs = sum(c * (c + 1) // 2 for c in [tile] * (s // tile) + ([s % tile] if s % tile else []))
-    # C.B per chunk pair (shared by the heads), w @ x, and per step C h^T plus
-    # the state update (2 P N each), per head
-    flops = b * (2 * pairs * n + h * (2 * pairs * p + 4 * s * p * n))
     y, hT = ssd.ssd_scan_cuda(*sets[0])
     wy, wh = ref.ssd_scan_ref(*sets[0])
 
@@ -1954,7 +1973,7 @@ def time_ssd_case(torch, ref, _build, ssd, gen, b, s, h, p, n, simt: bool = True
         **device_times(lambda *a: ssd.ssd_scan_cuda(*a),
                        ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel",
                         "ssd_kernel"), None, sets),
-        **bound(per_set, flops),
+        **bound(*work),
     )
     del sets
     return out
@@ -1964,6 +1983,8 @@ def phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs):
     """Each kernel at its serving path's shapes.  The attention kernels run on
     two paths with different head layouts, so their entries also carry the
     zamba2-1.2b shapes (``zamba2``, with that run's launches)."""
+    from repro_torch.kernels import cost
+
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf = torch.bfloat16
     entries = []
@@ -2005,8 +2026,6 @@ def phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs):
 
     # --- int8 decode attention: the same 8 slots over an int8 cache ---------
     _, q8_counts, _ = runs[INT8]
-    kv_bytes = sum(lens) * hkv * ((d + d) * 1 + 2 * 4)  # int8 rows + f32 scales
-    per_set = kv_bytes + 2 * bsz * hq * d * 2 + bsz * 4
     n_sets = copies_past_l2(bsz * smax * hkv * (d * 2 + 8))
 
     def q8_set():
@@ -2015,6 +2034,7 @@ def phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs):
         return (torch.randn((bsz, 1, hq, d), generator=gen, device="cuda").to(bf), kq, ks, vq, vs)
 
     sets = [q8_set() for _ in range(n_sets)]
+    q8_work = cost.decode_attention_q8(*sets[0], lengths=lens)  # int8 rows + f32 scales
     entries.append(dict(
         name="decode_attention_q8", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention_q8.cu",
@@ -2029,7 +2049,7 @@ def phase_timing(torch, F, ref, _build, fa, dec, q8, ssd, runs):
         library_ms=None,  # no single PyTorch call computes attention over an int8 cache
         **device_times(lambda *a: q8.decode_attention_q8_cuda(*a, length),
                        ("decode_q8_split_kernel", "decode_combine_kernel"), None, sets),
-        **bound(per_set, 2 * hq * sum(lens) * (d + d)),
+        **bound(*q8_work),
     ))
     del sets
 
@@ -2553,6 +2573,216 @@ def phase_distribution(torch, training: dict) -> dict:
                 seconds=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the static cost analysis held to the card
+# ---------------------------------------------------------------------------
+#: (a) the dry-run of smollm-135m's four shapes on a fake pod16x16 process
+#: group (256 ranks, meta tensors: no card), in a subprocess of its own so
+#: that the fake group never meets phase 12's NCCL state; started before
+#: phase 11 and read after phase 12
+COST_DRYRUN_ARGS = ["--arch", SMOLLM, "--mesh", "single"]
+COST_DRYRUN_TIMEOUT_S = 600
+#: (a) each cell's counted FLOPs x 256 against smollm_analytic_flops
+COST_FLOPS_REL = 0.02
+#: (b) the counted memory of one step (arguments + the peak of the rest)
+#: over the rise in max_memory_allocated across one real step on the card
+COST_MEM_RANGE = (0.5, 2.0)
+
+
+def start_dryrun():
+    """Phase 13 (a)'s subprocess: ``python -m repro_torch.launch.dryrun``
+    with its artifacts and log under build/phase13.  Returns [process,
+    artifact directory, start time]."""
+    out = os.path.join(ROOT, "build", "phase13")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), OMP_NUM_THREADS="1")
+    with open(os.path.join(out, "dryrun.log"), "w") as f:
+        # at the lowest priority: phases 11 and 12 time their steps beside it
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                                 *COST_DRYRUN_ARGS, "--out", out], cwd=ROOT, env=env,
+                                stdout=f, stderr=subprocess.STDOUT,
+                                preexec_fn=lambda: os.nice(19))
+    return [proc, out, time.perf_counter()]
+
+
+def smollm_analytic_flops(shape) -> float:
+    """The matmul FLOPs of one step of smollm-135m over all 256 ranks of the
+    (16, 16) mesh, term by term: the Q, K, V, O and SwiGLU projections of 30
+    layers and the tied LM head, sharded with no rank repeating another's
+    work; attention at the kernel's pairs (the causal prefill's, or the
+    whole cache at decode) on every rank of ``model``, since 9 query heads
+    and 3 KV heads do not divide 16 ranks.  A train step adds remat's
+    second forward of each layer, the projections' two backward products,
+    the head's two, and the plain attention backward's five (query chunk x
+    every key) products per layer.  What the count finds beyond this is
+    work DTensor repeats on every rank of ``model`` (1.45% of train_4k:
+    weight gradients of the attention output, whose input is replicated
+    there); tests/test_torch_dryrun.py holds prefill and decode on the
+    CPU, where train_4k takes minutes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cost
+
+    cfg = get_config(SMOLLM)
+    d, hd, f, v = cfg.d_model, cfg.head_dim_, cfg.d_ff, cfg.vocab_size
+    hq, hkv, n = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    b, s = shape.global_batch, shape.seq_len
+    tokens = b * (1 if shape.kind == "decode" else s)
+    proj = 2 * tokens * d * (hq * hd + 2 * hkv * hd + hq * hd + 3 * f)
+    head = 2 * tokens * d * v
+    if shape.kind == "decode":
+        return n * proj + head + 16 * n * 2 * hq * b * s * (hd + hd)
+    fwd_attn = 2 * b * hq * cost.attention_pairs(s, s, True, None) * (hd + hd)
+    if shape.kind == "prefill":
+        return n * proj + head + 16 * n * fwd_attn
+    bwd_attn = 5 * 2 * b * hq * s * s * hd
+    return 4 * n * proj + 3 * head + 16 * n * (2 * fwd_attn + bwd_attn)
+
+
+def phase_cost_analysis(torch, ops, device_label: str, training: dict, dry) -> dict:
+    """Phase 13: (a) the dry-run's smollm-135m cells on the fake pod16x16
+    group (``cost_dryrun_cells``), (b) one rank at phase 11 (b)'s shape
+    (``cost_one_rank``).  Returns the {"cost_analysis": ...} summary."""
+    t0 = time.perf_counter()
+    log("phase 13 (a): the dry-run of smollm-135m on a fake pod16x16 process group")
+    cells = cost_dryrun_cells(dry, device_label)
+    t_a = time.perf_counter() - t0
+    log("phase 13 (b): one rank at phase 11 (b)'s shape, counted and on the card")
+    one_rank = cost_one_rank(torch, ops, device_label, training["smollm"])
+    total = time.perf_counter() - t0
+    log(f"phase 13: {total:.1f} s ((a) waited {t_a:.1f} s; the dry-run took "
+        f"{dry[3]:.1f} s beside phases 11-12)")
+    return dict(device=device_label, dryrun=cells, one_rank=one_rank, dryrun_s=dry[3],
+                seconds=total)
+
+
+def cost_dryrun_cells(dry, device_label: str) -> dict:
+    """Phase 13 (a): each of smollm-135m's cells "ok" (long_500k "skipped"),
+    its FLOPs x 256 within COST_FLOPS_REL of the analytic count.  Waits for
+    the subprocess and appends its wall seconds to ``dry``."""
+    from repro_torch.configs import SHAPES
+
+    proc, out, started = dry[:3]
+    try:
+        rc = proc.wait(max(1.0, COST_DRYRUN_TIMEOUT_S - (time.perf_counter() - started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"phase 13: the dry-run outlived {COST_DRYRUN_TIMEOUT_S} s")
+    dry.append(time.perf_counter() - started)
+    with open(os.path.join(out, "dryrun.log")) as f:
+        dry_log = f.read()
+    if rc != 0:
+        raise AssertionError(f"phase 13: the dry-run exited {rc}:\n{dry_log[-3000:]}")
+    cells = {}
+    for name, shape in SHAPES.items():
+        with open(os.path.join(out, "pod16x16", f"{SMOLLM}__{name}.json")) as f:
+            cell = json.load(f)
+        if name == "long_500k":
+            if cell["status"] != "skipped":
+                raise AssertionError(f"phase 13: {name} is {cell['status']}, not skipped")
+            cells[name] = dict(status=cell["status"], reason=cell["reason"])
+            continue
+        if cell["status"] != "ok":
+            raise AssertionError(f"phase 13: {name}: {cell.get('error')}")
+        got = cell["per_device"]["flops"] * cell["n_devices"]
+        want = smollm_analytic_flops(shape)
+        r = cell["roofline"]
+        cells[name] = dict(status="ok", n_devices=cell["n_devices"], count_s=cell["count_s"],
+                           per_device=cell["per_device"], kernels=cell["kernels"],
+                           roofline=r, useful_ratio=cell["useful_ratio"],
+                           model_flops=cell["model_flops"], flops_total=got,
+                           analytic_flops=want, vs_analytic=got / want)
+        log(f"  {name}: compute {r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} "
+            f"ms, collective {r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}, "
+            f"useful ratio {cell['useful_ratio']:.4f}, FLOPs x 256 / analytic {got / want:.4f}, "
+            f"counted in {cell['count_s']:.1f} s (H100 datasheet peaks; card {device_label})")
+        if abs(got / want - 1) > COST_FLOPS_REL:
+            raise AssertionError(f"phase 13: {name}'s FLOPs x 256 are {got / want:.4f} of the "
+                                 f"analytic count (limit {COST_FLOPS_REL:g})")
+    return cells
+
+
+def cost_one_rank(torch, ops, device_label: str, run: dict) -> dict:
+    """Phase 13 (b): smollm-135m at phase 11 (b)'s shape (``run``: its
+    summary) counted on ``meta`` on one rank: the flash calls booked a step
+    against the launches a step phase 11 measured and one real step's, the
+    counted memory against the real step's rise in max_memory_allocated,
+    and the roofline bound against phase 11 (b)'s median step."""
+    from repro_torch.configs import get_config
+    from repro_torch.distribution.cost_analysis import CostCounter
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import bundle, transformer
+    from repro_torch.training import data as data_mod
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+
+    args = train_launch.parse_args(TRAIN_ARGS)
+    cfg = get_config(SMOLLM)
+    mb = bundle(cfg)
+    ocfg = opt.AdamWConfig(lr=args.lr)
+    remat = transformer.remat_mode()
+    step = make_train_step(mb, ocfg, TrainConfig(microbatch=args.microbatch, remat=True))
+    params = mb.param_shapes()
+    state = opt.init(params, ocfg)
+    batch = {"tokens": torch.empty((args.batch, args.seq), dtype=torch.int32, device="meta")}
+    counter = CostCounter()
+    counter.track_arguments(params, state, batch)
+    with counter:
+        step(params, state, batch)
+    del params, state, batch
+    booked = counter.kernels.get("flash_attention", {}).get("calls", 0)
+    per_step = run["launches"].get("flash_attention", 0) / len(run["losses"])
+    per_step_tc = run["launches"].get("flash_attention.tc", 0) / len(run["losses"])
+    if booked != per_step or per_step_tc != per_step or set(counter.kernels) != {"flash_attention"}:
+        raise AssertionError(f"phase 13: the count books {counter.kernels} a step, phase 11 "
+                             f"launched flash {per_step} ({per_step_tc} .tc) a step")
+    # one real step: the rise in allocated memory from before its arguments
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda = torch.device("cuda")
+    params = train_launch.init_params(mb, args.seed, cuda)
+    state = opt.init(params, ocfg)
+    dcfg = data_mod.DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                               global_batch=args.batch, seed=args.seed, dtype=cfg.dtype)
+    batch = data_mod.get_batch(dcfg, 0, device=cuda)
+    ops.reset_launch_counts()
+    result = step(params, state, batch)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    launched = ops.launch_counts()
+    del params, state, batch, result
+    transformer.set_remat(remat)
+    torch.cuda.empty_cache()
+    if launched.get("flash_attention", 0) != booked:
+        raise AssertionError(f"phase 13: the real step launched {launched}, the count booked "
+                             f"{booked} flash calls")
+    est = counter.argument_bytes + counter.temp_bytes
+    lo, hi = COST_MEM_RANGE
+    if not lo <= est / rise <= hi:
+        raise AssertionError(f"phase 13: counted memory {est} B is {est / rise:.3f} of the real "
+                             f"step's {rise} B (limits {lo}-{hi})")
+    tot = counter.totals
+    compute_s, memory_s = tot.flops / dryrun.PEAK_FLOPS, tot.bytes / dryrun.HBM_BW
+    bound_s = max(compute_s, memory_s)
+    median = run["median_step_s"]
+    log(f"  counted: {tot.flops:.4e} FLOPs, {tot.bytes:.4e} bytes, flash booked {booked} a step "
+        f"(phase 11 launched {per_step:g}, all .tc; the real step "
+        f"{launched.get('flash_attention')}); memory: arguments {counter.argument_bytes} + peak {counter.temp_bytes} = {est} B vs "
+        f"the real step's rise {rise} B ({est / rise:.3f}); roofline bound "
+        f"{bound_s * 1e3:.2f} ms (compute {compute_s * 1e3:.2f}, memory {memory_s * 1e3:.2f}) = "
+        f"{bound_s / median:.3f} of phase 11 (b)'s median step {median:.4f} s ({device_label})")
+    return dict(args=TRAIN_ARGS, flops=tot.flops, bytes=tot.bytes, kernels=counter.kernels,
+                flash_per_step_phase11=per_step, flash_real_step=launched.get("flash_attention"),
+                argument_bytes=counter.argument_bytes, temp_bytes=counter.temp_bytes,
+                counted_bytes=est, real_step_rise_bytes=rise, memory_ratio=est / rise,
+                compute_s=compute_s, memory_s=memory_s, bound_s=bound_s, median_step_s=median,
+                bound_over_step=bound_s / median)
+
+
 def main() -> int:
     import torch
 
@@ -2575,7 +2805,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_device()
+    device_label = phase_device()
     phase_build(_build)
     phase_kernels(torch, ops, ref, fa, dec, q8, ssd)
     runs = phase_engines(torch, ops, serve, layers)
@@ -2598,9 +2828,17 @@ def main() -> int:
     fam_flash, fam_decode = family_kernel_times(torch, F, ref, fa, dec, families)
     entries[0]["families"], entries[1]["families"] = fam_flash, fam_decode
     torch.cuda.empty_cache()
-    training, train_counts, train_times = phase_training(torch, F, ops, ref, _build, fa, ssd)
-    torch.cuda.empty_cache()
-    distribution = phase_distribution(torch, training)
+    dry = start_dryrun()
+    try:
+        training, train_counts, train_times = phase_training(torch, F, ops, ref, _build, fa, ssd)
+        torch.cuda.empty_cache()
+        distribution = phase_distribution(torch, training)
+        torch.cuda.empty_cache()
+        cost_analysis = phase_cost_analysis(torch, ops, device_label, training, dry)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
     for e in entries:
         e["launches_by_path"]["training"] = train_counts.get(e["name"], 0)
         if e["name"] in train_times:
@@ -2642,6 +2880,7 @@ def main() -> int:
     log(json.dumps({"families": families}))
     log(json.dumps({"training": training}))
     log(json.dumps({"distribution": distribution}))
+    log(json.dumps({"cost_analysis": cost_analysis}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

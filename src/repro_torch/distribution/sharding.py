@@ -45,6 +45,7 @@ __all__ = [
     "DEFAULT_RULES", "MeshShape", "use_mesh", "current", "constrain", "mesh_axes",
     "param_specs", "opt_state_specs", "batch_specs", "cache_specs", "placements",
     "distribute", "is_trivial", "is_dtensor", "data_axes", "splits_heads", "logical_spec",
+    "merge_heads", "distribute_cache", "gather_fsdp",
 ]
 
 _STATE = threading.local()
@@ -151,7 +152,11 @@ def logical_spec(shape: Sequence[int], logical_axes: Sequence[Optional[str]], me
 
 def constrain(x, logical_axes: Sequence[Optional[str]]):
     """Redistribute the DTensor ``x`` to the placements the rules give its
-    logical axes; a plain tensor, a rank mismatch or no mesh leave it as is."""
+    logical axes, and its gradient to the same placements on the way back,
+    as ``with_sharding_constraint`` constrains the cotangent too (DTensor
+    would otherwise carry a gradient's partial sums on through linear ops
+    and gather the next weights to multiply them whole on every rank); a
+    plain tensor, a rank mismatch or no mesh leave it as is."""
     ctx = current()
     if ctx is None or not is_dtensor(x):
         return x
@@ -159,9 +164,9 @@ def constrain(x, logical_axes: Sequence[Optional[str]]):
         return x  # the caller's annotation does not apply here
     spec = logical_spec(tuple(x.shape), logical_axes, ctx["mesh"], ctx["rules"])
     want = placements(spec, ctx["mesh"])
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(x.device_mesh, want)
+    if tuple(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    return _GradInPlacements.apply(x) if x.requires_grad else x
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +323,22 @@ def cache_specs(cache: Any, mesh, batch_size: int) -> Any:
     return _walk(cache, (), spec)
 
 
+def distribute_cache(cache: Any, mesh, batch_size: int) -> Any:
+    """``cache`` as DTensors placed by ``cache_specs``, except the per-layer
+    ``index`` counters, which stay replicated: a step advances each layer's
+    counter in place through a view of the stack, and DTensor cannot update
+    a view of a shard in place (the reference's specs shard the stacked
+    counters over the data axes, where JAX rewrites the whole array)."""
+    def unshard_index(node, spec, key=None):
+        if isinstance(node, dict):
+            return {k: unshard_index(v, spec[k], k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [unshard_index(v, sp, key) for v, sp in zip(node, spec)]
+        return () if key == "index" else spec
+
+    return distribute(cache, unshard_index(cache, cache_specs(cache, mesh, batch_size)), mesh)
+
+
 # ---------------------------------------------------------------------------
 # specs <-> DTensor placements
 # ---------------------------------------------------------------------------
@@ -361,6 +382,62 @@ def splits_heads(x, n_heads: int) -> bool:
     ways = math.prod(n for n, pl in zip(x.device_mesh.shape, x.placements)
                      if isinstance(pl, Shard) and pl.dim in (-1, x.ndim - 1))
     return n_heads % ways != 0
+
+
+def gather_fsdp(tree: Any) -> Any:
+    """Under an fsdp mesh, each DTensor leaf of ``tree`` with its shards over
+    the data axes gathered (ZeRO-3's gather before use; the gradient goes
+    back as a reduce-scatter).  Left sharded there, a weight can make
+    DTensor contract over the data axes and gather the activations instead,
+    so that every data rank computes the whole batch.  A no-op outside a
+    mesh, without fsdp and on plain tensors."""
+    ctx = current()
+    if ctx is None or not ctx["fsdp"]:
+        return tree
+    from torch.distributed.tensor import Replicate, Shard
+
+    def gather(x):
+        if not is_dtensor(x):
+            return x
+        daxes = data_axes(x.device_mesh)
+        pl = tuple(Replicate() if name in daxes and isinstance(p, Shard) else p
+                   for name, p in zip(x.device_mesh.mesh_dim_names, x.placements))
+        return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+    return _map(gather, tree)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+class _GradInPlacements(torch.autograd.Function):
+    """Identity whose gradient is redistributed to the input's placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, H * D).  A DTensor's gradient reaches the merge
+    in the merged tensor's own placements: the projection after it may hand
+    back a gradient sharded over H * D where H does not divide the shards,
+    and DTensor cannot split such a shard back into heads."""
+    b, s, h, d = x.shape
+    y = x.reshape(b, s, h * d)
+    return _GradInPlacements.apply(y) if is_dtensor(y) else y
 
 
 def is_trivial(mesh) -> bool:

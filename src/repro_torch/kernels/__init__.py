@@ -11,5 +11,9 @@ Each is CUDA C++ under ``csrc/`` built for ``sm_90a`` at first use
 dispatch the models call (kernel for CUDA tensors, plain version for CPU ones).
 Under autograd, flash attention and the SSD scan go through
 ``torch.autograd.Function``s whose backward is plain PyTorch (``ref.py``).
+A ``meta`` tensor takes each wrapper's ``meta`` route: an empty output of
+the kernel's shape, nothing launched, and the launch's work (``cost.py``:
+FLOPs and compulsory bytes from its shapes) booked with the static cost
+analysis (``distribution/cost_analysis.py``).
 """
 from . import ops  # noqa: F401

@@ -10,6 +10,11 @@ partials go to an f32 scratch tensor allocated here.  One call counts as
 one ``decode_attention`` launch.  No training path reaches this kernel and it
 has no backward (nor has the reference's): under autograd (grad enabled and
 an input that requires grad) it raises.
+
+A ``meta`` tensor (the static cost analysis) takes ``decode_attention_meta``: an
+empty output of the kernel's shape and dtype, the launch's work
+(``cost.decode_attention``, over the whole cache: a ``meta`` length has no value)
+booked under ``decode_attention``, nothing launched and no plain version run.
 """
 from __future__ import annotations
 
@@ -18,10 +23,10 @@ from typing import Union
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .ref import decode_attention_ref
 
-__all__ = ["decode_attention", "decode_attention_cuda", "NAME", "SPLIT"]
+__all__ = ["decode_attention", "decode_attention_cuda", "decode_attention_meta", "NAME", "SPLIT"]
 
 NAME = "decode_attention"
 #: cache rows per block (the source note says why 64); read at each call
@@ -75,11 +80,20 @@ def decode_attention_cuda(
     return out
 
 
+def decode_attention_meta(q, k, v, length) -> torch.Tensor:
+    """The kernel on ``meta`` tensors: books the launch's work over the whole
+    cache, returns an empty (B, 1, Hq, Dv) output in q's dtype."""
+    cost.book(NAME, cost.decode_attention(q, k, v))
+    return torch.empty((*q.shape[:3], v.shape[-1]), dtype=q.dtype, device=q.device)
+
+
 def decode_attention(q, k, v, length):
     """CUDA tensor: the hand-written kernel (or an error).  CPU tensor: the
-    plain version."""
+    plain version.  ``meta`` tensor: the booked launch."""
     if q.is_cuda:
         return decode_attention_cuda(q, k, v, length)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, length)
+    if q.is_meta:
+        return decode_attention_meta(q, k, v, length)
     raise ValueError(f"decode_attention: unsupported device {q.device}")

@@ -11,6 +11,12 @@ allocated here.  One call counts as one ``decode_attention_q8`` launch.  No
 training path reaches this kernel and it has no backward (nor has the
 reference's): under autograd (grad enabled and an input that requires grad)
 it raises.
+
+A ``meta`` tensor (the static cost analysis) takes
+``decode_attention_q8_meta``: an empty output of the kernel's shape and
+dtype, the launch's work (``cost.decode_attention_q8``, over the whole
+cache: a ``meta`` length has no value) booked under
+``decode_attention_q8``, nothing launched and no plain version run.
 """
 from __future__ import annotations
 
@@ -19,10 +25,11 @@ from typing import Union
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .ref import decode_attention_q8_ref
 
-__all__ = ["decode_attention_q8", "decode_attention_q8_cuda", "NAME", "SPLIT"]
+__all__ = ["decode_attention_q8", "decode_attention_q8_cuda", "decode_attention_q8_meta", "NAME",
+           "SPLIT"]
 
 NAME = "decode_attention_q8"
 #: cache rows per block (the source note says why 64); read at each call
@@ -82,11 +89,20 @@ def decode_attention_q8_cuda(
     return out
 
 
+def decode_attention_q8_meta(q, k_q, k_s, v_q, v_s, length) -> torch.Tensor:
+    """The kernel on ``meta`` tensors: books the launch's work over the whole
+    cache, returns an empty (B, 1, Hq, Dv) output in q's dtype."""
+    cost.book(NAME, cost.decode_attention_q8(q, k_q, k_s, v_q, v_s))
+    return torch.empty((*q.shape[:3], v_q.shape[-1]), dtype=q.dtype, device=q.device)
+
+
 def decode_attention_q8(q, k_q, k_s, v_q, v_s, length):
     """CUDA tensor: the hand-written kernel (or an error).  CPU tensor: the
-    plain version."""
+    plain version.  ``meta`` tensor: the booked launch."""
     if q.is_cuda:
         return decode_attention_q8_cuda(q, k_q, k_s, v_q, v_s, length)
     if q.device.type == "cpu":
         return decode_attention_q8_ref(q, k_q, k_s, v_q, v_s, length)
+    if q.is_meta:
+        return decode_attention_q8_meta(q, k_q, k_s, v_q, v_s, length)
     raise ValueError(f"decode_attention_q8: unsupported device {q.device}")

@@ -17,6 +17,13 @@ is the same kernel launch, its backward the plain query-chunked recompute
 ``ref.attention_bwd_ref`` (the reference has no backward kernel either; it
 differentiates its chunked jnp attention).  ``flash_attention_cuda`` itself
 never builds a graph, so it raises when called directly under autograd.
+
+A ``meta`` tensor (the static cost analysis) takes ``flash_attention_meta``:
+an empty output of the kernel's shape and dtype, the launch's work
+(``cost.flash_attention``) booked under ``flash_attention``, nothing
+launched and no plain version run.  Under autograd it goes through
+``FlashAttention`` too, whose backward then runs the plain backward on
+``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -25,10 +32,11 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .ref import attention_bwd_ref, attention_ref
 
-__all__ = ["flash_attention", "flash_attention_cuda", "FlashAttention", "body", "NAME"]
+__all__ = ["flash_attention", "flash_attention_cuda", "flash_attention_meta", "FlashAttention",
+           "body", "NAME"]
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -91,9 +99,18 @@ def flash_attention_cuda(
     return out
 
 
+def flash_attention_meta(q, k, v, causal: bool = True,
+                         sliding_window: Optional[int] = None) -> torch.Tensor:
+    """The kernel on ``meta`` tensors: books the launch's work, returns an
+    empty (B, Sq, Hq, Dv) output in q's dtype."""
+    cost.book(NAME, cost.flash_attention(q, k, v, causal, sliding_window))
+    return torch.empty((*q.shape[:3], v.shape[-1]), dtype=q.dtype, device=q.device)
+
+
 class FlashAttention(torch.autograd.Function):
-    """Forward: ``flash_attention_cuda`` on a CUDA tensor (``attention_ref`` on
-    a CPU one, which the CPU tests use to check this backward).  Backward:
+    """Forward: ``flash_attention_cuda`` on a CUDA tensor,
+    ``flash_attention_meta`` on a ``meta`` one (``attention_ref`` on a CPU
+    one, which the CPU tests use to check this backward).  Backward:
     ``attention_bwd_ref``, which recomputes the probabilities chunk by chunk
     from the saved q, k, v."""
 
@@ -101,6 +118,8 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal: bool, sliding_window: Optional[int]):
         if q.is_cuda:
             out = flash_attention_cuda(q, k, v, causal, sliding_window)
+        elif q.is_meta:
+            out = flash_attention_meta(q, k, v, causal, sliding_window)
         else:
             out = attention_ref(q, k, v, causal, sliding_window)
         ctx.save_for_backward(q, k, v)
@@ -116,10 +135,14 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True, sliding_window: Optional[int] = None):
     """CUDA tensor: the hand-written kernel (or an error), through
-    ``FlashAttention`` under autograd.  CPU tensor: the plain version."""
-    if q.is_cuda:
+    ``FlashAttention`` under autograd.  CPU tensor: the plain version.
+    ``meta`` tensor: the booked launch, through ``FlashAttention`` under
+    autograd."""
+    if q.is_cuda or q.is_meta:
         if _build.wants_graph(q, k, v):
             return FlashAttention.apply(q, k, v, causal, sliding_window)
+        if q.is_meta:
+            return flash_attention_meta(q, k, v, causal, sliding_window)
         return flash_attention_cuda(q, k, v, causal, sliding_window)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal, sliding_window)

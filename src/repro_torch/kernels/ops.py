@@ -8,14 +8,16 @@ a CUDA tensor's flash attention and SSD scan go through their
 decode kernels raise there.  Every kernel keeps an integer launch count,
 read with ``launch_counts()``.
 
-Under a mesh (``distribution.sharding.use_mesh``) flash attention and the
-SSD scan take ``DTensor`` inputs.  They reach the kernels through
+Under a mesh (``distribution.sharding.use_mesh``) every kernel takes
+``DTensor`` inputs.  They reach the kernels through
 ``torch.distributed.tensor.experimental.local_map``: the inputs are
 sharded by batch over the data axes when the batch divides, and by heads
 over ``model`` when the head counts divide, replicated otherwise (the
-reference's divisibility rule).  Each rank's kernel then runs on its own
-rows and heads, and counts its launches; no input is gathered whole to
-reach a kernel.
+reference's divisibility rule); a decode's cache length is replicated
+(sharded with the batch where it is one length per slot).  Each rank's
+kernel then runs on its own rows and heads, and counts its launches (on
+``meta`` tensors, books them); no input is gathered whole to reach a
+kernel.
 """
 from __future__ import annotations
 
@@ -25,8 +27,8 @@ import torch
 
 from ..distribution import sharding
 from ._build import launch_counts, reset_launch_counts
-from .decode_attention import decode_attention
-from .decode_attention_q8 import decode_attention_q8
+from .decode_attention import decode_attention as _decode_attention
+from .decode_attention_q8 import decode_attention_q8 as _decode_attention_q8
 from .flash_attention import flash_attention as _flash_attention
 from .ssd_scan import ssd_scan as _ssd_scan
 
@@ -69,6 +71,50 @@ def flash_attention(q, k, v, causal: bool = True, sliding_window=None):
 
     return local_map(local, out_placements=list(pl), in_placements=(pl, pl, pl),
                      device_mesh=mesh)(q, k, v)
+
+
+def _decode_local(kernel, q, caches, length):
+    """``kernel(q, *caches, length)`` per rank through ``local_map``: q and
+    the caches by batch and KV heads, a DTensor length replicated (by batch
+    where it is one length per slot), a plain length handed to every rank."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    m = sharding.mesh_axes(mesh).get("model", 1)
+    bax, hax = _local_layout(mesh, q.shape[0], q.shape[2] % m == 0 and caches[0].shape[2] % m == 0)
+    placements = sharding.placements
+    pls = [placements((bax, None, hax, None)[:t.dim()], mesh) for t in (q, *caches)]
+    args = [t.redistribute(mesh, pl) for t, pl in zip((q, *caches), pls)]
+    out_pl = pls[0]
+    if sharding.is_dtensor(length):
+        lpl = placements((bax,) if length.dim() == 1 else (), mesh)
+        args.append(length.redistribute(mesh, lpl))
+        pls.append(lpl)
+
+        def local(q, *rest):
+            return kernel(q.contiguous(), *(t.contiguous() for t in rest[:-1]), rest[-1])
+    else:
+        def local(q, *rest):
+            return kernel(q.contiguous(), *(t.contiguous() for t in rest), length)
+
+    return local_map(local, out_placements=list(out_pl), in_placements=tuple(pls),
+                     device_mesh=mesh)(*args)
+
+
+def decode_attention(q, k, v, length):
+    """Flash decoding on plain tensors, or on DTensors through ``local_map``
+    (each rank attends its own slots and KV heads)."""
+    if not sharding.is_dtensor(q):
+        return _decode_attention(q, k, v, length)
+    return _decode_local(_decode_attention, q, (k, v), length)
+
+
+def decode_attention_q8(q, k_q, k_s, v_q, v_s, length):
+    """The int8-cache decode on plain tensors, or on DTensors through
+    ``local_map`` as ``decode_attention``."""
+    if not sharding.is_dtensor(q):
+        return _decode_attention_q8(q, k_q, k_s, v_q, v_s, length)
+    return _decode_local(_decode_attention_q8, q, (k_q, k_s, v_q, v_s), length)
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,13 @@ recurrence recomputed under autograd in its chunk-parallel form (the
 reference has no backward kernel; it differentiates its chunked jnp scan).
 ``ssd_scan_cuda`` itself never builds a graph, so it raises when called
 directly under autograd.
+
+A ``meta`` tensor (the static cost analysis) takes ``ssd_scan_meta``: empty
+outputs of the kernel's shapes and dtypes (y, the f32 final state), the
+launch's work (``cost.ssd_scan``) booked under ``ssd_scan``, nothing
+launched and no plain version run.  Under autograd it goes through
+``SSDScan`` too, whose backward then runs the plain backward on ``meta``
+tensors.
 """
 from __future__ import annotations
 
@@ -29,10 +36,10 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, cost
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_scan_cuda", "SSDScan", "body", "NAME", "CHUNK"]
+__all__ = ["ssd_scan", "ssd_scan_cuda", "ssd_scan_meta", "SSDScan", "body", "NAME", "CHUNK"]
 
 NAME = "ssd_scan"
 #: the kernel's time tile (``L`` in csrc/ssd_scan.cu); sizes the tensor-core body's scratch
@@ -123,15 +130,24 @@ def ssd_scan_cuda(
     return y, h_t
 
 
+def ssd_scan_meta(x, dt, A, B, C, initial_state=None):
+    """The kernel on ``meta`` tensors: books the launch's work, returns empty
+    y (Bt, S, H, P) in x's dtype and the final state (Bt, H, P, N) f32."""
+    bt, _, h, p = x.shape
+    cost.book(NAME, cost.ssd_scan(x, dt, A, B, C, initial_state))
+    return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty((bt, h, p, B.shape[-1]), dtype=torch.float32, device=x.device))
+
+
 class SSDScan(torch.autograd.Function):
-    """Forward: ``ssd_scan_cuda`` on a CUDA tensor (``ssd_scan_ref`` on a CPU
-    one, which the CPU tests use to check this backward), on the inputs as
-    given, strided views included.  Backward: ``ssd_scan_bwd_ref`` from the
-    saved inputs."""
+    """Forward: ``ssd_scan_cuda`` on a CUDA tensor, ``ssd_scan_meta`` on a
+    ``meta`` one (``ssd_scan_ref`` on a CPU one, which the CPU tests use to
+    check this backward), on the inputs as given, strided views included.
+    Backward: ``ssd_scan_bwd_ref`` from the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, initial_state):
-        fn = ssd_scan_cuda if x.is_cuda else ssd_scan_ref
+        fn = ssd_scan_cuda if x.is_cuda else ssd_scan_meta if x.is_meta else ssd_scan_ref
         y, final = fn(x, dt, A, B, C, initial_state)
         ctx.save_for_backward(x, dt, A, B, C, initial_state)
         return y, final
@@ -143,10 +159,13 @@ class SSDScan(torch.autograd.Function):
 
 def ssd_scan(x, dt, A, B, C, initial_state=None):
     """CUDA tensor: the hand-written kernel (or an error), through ``SSDScan``
-    under autograd.  CPU tensor: the plain version."""
-    if x.is_cuda:
+    under autograd.  CPU tensor: the plain version.  ``meta`` tensor: the
+    booked launch, through ``SSDScan`` under autograd."""
+    if x.is_cuda or x.is_meta:
         if _build.wants_graph(x, dt, A, B, C, initial_state):
             return SSDScan.apply(x, dt, A, B, C, initial_state)
+        if x.is_meta:
+            return ssd_scan_meta(x, dt, A, B, C, initial_state)
         return ssd_scan_cuda(x, dt, A, B, C, initial_state)
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, A, B, C, initial_state)

@@ -98,9 +98,59 @@ def apply_rope(
 
 
 # ---------------------------------------------------------------------------
+# cache writes
+# ---------------------------------------------------------------------------
+def write_rows(dst: torch.Tensor, start: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst[:, start:start + S] = src`` in place (dim 1, ``src`` (B, S, ...)),
+    with no host sync on ``start``.
+
+    A DTensor ``dst`` is written by each rank into its own block with local
+    ops (DTensor has no rule for ``index_copy_`` in torch 2.11, and in 2.13
+    its rule along a sharded dim writes global positions into the local
+    block and marks the view replicated).  Where ``dst`` is sharded along
+    dim 1 (``cache_specs`` puts a mesh axis on a cache's sequence), every
+    row of the rank's block takes ``src``'s row where the written range
+    covers it and keeps its own elsewhere, as GSPMD partitions a
+    dynamic-update-slice along a sharded dim."""
+    s = src.shape[1]
+    if not sharding.is_dtensor(dst):
+        pos = start.long() + torch.arange(s, device=dst.device)
+        dst.index_copy_(1, pos, src.to(dst.dtype))
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = dst.device_mesh
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in dst.placements)
+    src_l = src.redistribute(mesh, pl).to_local().to(dst.dtype)
+    start_l = (start.full_tensor() if sharding.is_dtensor(start) else start).long()
+    dst_l = dst.to_local()
+    if pl == tuple(dst.placements):  # dim 1 whole on every rank
+        dst_l.index_copy_(1, start_l + torch.arange(s, device=dst_l.device), src_l)
+        return
+    _, offset = compute_local_shape_and_global_offset(dst.shape, mesh, dst.placements)
+    blk = dst_l.shape[1]
+    u = offset[1] + torch.arange(blk, device=dst_l.device) - start_l  # src row
+    covered = ((u >= 0) & (u < s)).reshape((1, blk) + (1,) * (dst_l.dim() - 2))
+    dst_l.copy_(torch.where(covered, src_l.index_select(1, u.clamp(0, s - 1)), dst_l))
+
+
+def roll_seq(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(x, shift, dims=1)``; a DTensor takes the same rows
+    through slices and a concatenation (torch 2.11's DTensor has no rule
+    for ``roll``)."""
+    if not sharding.is_dtensor(x):
+        return torch.roll(x, shift, dims=1)
+    n = x.shape[1]
+    k = shift % n
+    return torch.cat([x[:, n - k:], x[:, :n - k]], dim=1) if k else x
+
+
+# ---------------------------------------------------------------------------
 # GQA attention
 # ---------------------------------------------------------------------------
-def _split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
+def split_heads(x: torch.Tensor, n_heads: int, hd: int) -> torch.Tensor:
     """(B,S,H*hd) -> (B,S,H,hd).  A DTensor whose last dim is sharded over
     more ranks than there are heads is replicated there first: DTensor does
     not split a shard across a reshape, where GSPMD would."""
@@ -136,10 +186,10 @@ def attention(
     """
     hd = cfg.head_dim_
     b, s, _ = x.shape
-    q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
+    q = split_heads(x @ p["wq"], cfg.n_heads, hd)
     q = hint(q, "batch", "seq", "heads", None)
-    k = _split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
-    v = _split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
     sin, cos = rope_tables(positions, hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos, cfg.rope_mode)
     k = apply_rope(k, sin, cos, cfg.rope_mode)
@@ -169,15 +219,14 @@ def attention(
             # the last Smax rows of the block, rolled so that row t lands
             # at t % Smax (a ring cache is never int8)
             for dst, src in rows:
-                dst.copy_(torch.roll(src[:, -smax:], s % smax, dims=1))
+                dst.copy_(roll_seq(src[:, -smax:], s % smax))
         else:
             # uniform write of s rows at index (clamped to fit, like
             # dynamic_update_slice; on the ring, one row at index % Smax);
             # no host sync on the index
             start = idx % smax if ring and s == 1 else idx.clamp(max=smax - s)
-            pos = start.long() + torch.arange(s, device=x.device)
             for dst, src in rows:
-                dst.index_copy_(1, pos, src.to(dst.dtype))
+                write_rows(dst, start, src)
         if s > 1:
             # prefill from an empty cache: causal attention over the fresh
             # full-precision block
@@ -191,7 +240,7 @@ def attention(
             out = kops.decode_attention(q, cache["k"], cache["v"], length=idx + 1)
         idx.add_(s)
     out = hint(out, "batch", "seq", "heads", None)
-    y = out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    y = sharding.merge_heads(out) @ p["wo"]
     return hint(y, "batch", "seq", None)
 
 
@@ -210,17 +259,17 @@ def cross_attention(
     attention is flash, non-causal, with Sq != Sk."""
     hd = cfg.head_dim_
     b, s, _ = x.shape
-    q = _split_heads(x @ p["wq"], cfg.n_heads, hd)
+    q = split_heads(x @ p["wq"], cfg.n_heads, hd)
     if kv_x is not None:
-        k = _split_heads(kv_x @ p["wk"], cfg.n_kv_heads, hd)
-        v = _split_heads(kv_x @ p["wv"], cfg.n_kv_heads, hd)
+        k = split_heads(kv_x @ p["wk"], cfg.n_kv_heads, hd)
+        v = split_heads(kv_x @ p["wv"], cfg.n_kv_heads, hd)
         if cache is not None:
             cache["k"].copy_(k)
             cache["v"].copy_(v)
     else:
         k, v = cache["k"], cache["v"]
     out = kops.cross_attention(q, k, v)
-    return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]
+    return sharding.merge_heads(out) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
@@ -267,9 +316,9 @@ def mla_attention(
             c_all[bix, wr] = c_kv[:, 0].to(c_all.dtype)
             pe_all[bix, wr] = k_pe[:, 0].to(pe_all.dtype)
         else:
-            pos = idx.clamp(max=smax - s).long() + torch.arange(s, device=x.device)
-            c_all.index_copy_(1, pos, c_kv.to(c_all.dtype))
-            pe_all.index_copy_(1, pos, k_pe.to(pe_all.dtype))
+            start = idx.clamp(max=smax - s)
+            write_rows(c_all, start, c_kv)
+            write_rows(pe_all, start, k_pe)
         lim = (idx + s).expand(b)
         idx.add_(s)
     if cache is not None and s == 1:
@@ -291,7 +340,7 @@ def mla_attention(
         k = torch.cat([kv[..., :nope], k_pe[:, :, None, :].expand(b, s, h, rope_d)], dim=-1)
         v = kv[..., nope:].contiguous()
         out = kops.flash_attention(torch.cat([q_nope, q_pe], dim=-1), k, v, causal=True)
-    y = out.reshape(b, s, h * vh) @ p["wo"]
+    y = sharding.merge_heads(out) @ p["wo"]
     return hint(y, "batch", "seq", None)
 
 
@@ -306,14 +355,50 @@ def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     else:  # gelu; jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ p["w_in"], approximate="tanh")
     h = hint(h, "batch", "seq", "mlp")
-    return h @ p["w_out"]
+    # the row-parallel product's partial sums are reduced here, where GSPMD
+    # reduces them: DTensor would carry them on through the residual and the
+    # next norm, and then gather the next layer's weights to multiply them
+    # whole on every rank
+    return hint(h @ p["w_out"], "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
 # embeddings / LM head
 # ---------------------------------------------------------------------------
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if sharding.is_dtensor(table):
+        return hint(_embed_local(table, tokens), "batch", "seq", None)
     return hint(table[tokens], "batch", "seq", None)
+
+
+def _embed_local(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup of a DTensor table, rank by rank in ``local_map``: the
+    table's fsdp shards of d are gathered, each rank looks up the tokens of
+    its rows in its slice of the vocabulary (zeros for the others), and the
+    partial rows add up over the vocabulary's shards.  DTensor's own rule
+    for the lookup's backward (an ``index_put``) fails in torch 2.11."""
+    from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    if not sharding.is_dtensor(tokens):
+        tokens = distribute_tensor(tokens, mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
+    vocab = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in table.placements]
+    tok = [Replicate() if isinstance(v, Shard) else p for v, p in zip(vocab, tokens.placements)]
+    table, tokens = table.redistribute(mesh, vocab), tokens.redistribute(mesh, tok)
+    _, offset = compute_local_shape_and_global_offset(table.shape, mesh, vocab)
+    out = [Partial() if isinstance(v, Shard) else p for v, p in zip(vocab, tok)]
+    grad = [Partial() if isinstance(p, Shard) else v for v, p in zip(vocab, tok)]
+
+    def lookup(tab, t):
+        n = tab.shape[0]
+        rows = t.long() - offset[0]
+        inside = (rows >= 0) & (rows < n)
+        return tab[rows.clamp(0, n - 1)] * inside[..., None].to(tab.dtype)
+
+    return local_map(lookup, out_placements=out, in_placements=(vocab, tok),
+                     in_grad_placements=(grad, tok), device_mesh=mesh)(table, tokens)
 
 
 def lm_logits(table_or_w: torch.Tensor, x: torch.Tensor, tied: bool) -> torch.Tensor:

@@ -16,6 +16,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeConfig
 from ..device import resolve_device
+from ..distribution import sharding
 from ..tree import tree_leaves, tree_map
 from .ssm import CONV_K, mamba_dims, mlstm_dims, slstm_ff_width
 from .transformer import Model, torch_dtype
@@ -258,10 +259,15 @@ class ModelBundle:
     def prefill_fn(
         self, params: Params, batch: Dict[str, torch.Tensor], max_len: int
     ) -> Tuple[torch.Tensor, Params]:
-        """Full-sequence forward that returns logits + a filled cache."""
+        """Full-sequence forward that returns logits + a filled cache (under
+        a mesh, a cache of DTensors: ``sharding.distribute_cache``)."""
         b, _ = batch["tokens"].shape
         enc_len = self.cfg.frontend_len if self.cfg.enc_dec else 0
         cache = self.model.init_cache(b, max_len, enc_len, device=batch["tokens"].device)
+        ctx = sharding.current()
+        if ctx is not None and not sharding.is_trivial(ctx["mesh"]):
+            # under a mesh the cache is placed as decode finds it
+            cache = sharding.distribute_cache(cache, ctx["mesh"], b)
         logits, cache, _ = self.model.forward(params, batch, cache=cache)
         return logits, cache
 
@@ -277,6 +283,35 @@ class ModelBundle:
         logits, cache, _ = self.model.forward(params, {"tokens": tokens}, cache=cache,
                                               positions=positions)
         return logits, cache
+
+    # ---- input specs ----------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, Any]:
+        """``meta`` stand-ins for the step function's inputs, of the
+        reference's shapes and dtypes: {"batch": {"tokens"[, "patch_embeds"
+        (vit) | "frames" (enc_dec)]}} for train and prefill; {"cache",
+        "tokens" (B, 1), "index" ()} for decode, the cache a ``meta``
+        ``Model.init_cache`` of ``seq_len`` rows."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        meta, i32 = torch.device("meta"), torch.int32
+
+        if shape.kind in ("train", "prefill"):
+            batch: Dict[str, Any] = {"tokens": torch.empty((b, s), dtype=i32, device=meta)}
+            extra = (cfg.frontend_len, cfg.frontend_dim)
+            if cfg.frontend == "vit":
+                batch["patch_embeds"] = torch.empty((b, *extra), dtype=torch_dtype(cfg),
+                                                    device=meta)
+            if cfg.enc_dec:
+                batch["frames"] = torch.empty((b, *extra), dtype=torch_dtype(cfg), device=meta)
+            return {"batch": batch}
+
+        # decode: one new token against a cache of size seq_len
+        enc_len = cfg.frontend_len if cfg.enc_dec else 0
+        return {
+            "cache": self.model.init_cache(b, s, enc_len, device=meta),
+            "tokens": torch.empty((b, 1), dtype=i32, device=meta),
+            "index": torch.empty((), dtype=i32, device=meta),
+        }
 
     def supports_shape(self, shape: ShapeConfig) -> bool:
         """long_500k requires sub-quadratic decode: a recurrent state or a

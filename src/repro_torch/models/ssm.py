@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distribution import sharding
 from ..kernels import ops as kops
 from . import layers
 
@@ -38,10 +39,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor]
     """Depthwise causal conv; x (B,S,C), w (K,C).  Returns (silu(y), new_state)."""
     k = w.shape[0]
     if state is None:
-        pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+        # a pad of x itself keeps a DTensor's placements, where a fresh zero
+        # tensor would be replicated and pull the batch onto every rank
+        xp = F.pad(x, (0, 0, k - 1, 0))
     else:
-        pad = state.to(x.dtype)
-    xp = torch.cat([pad, x], dim=1)
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i: i + x.shape[1]] * w[i][None, None, :] for i in range(k))
     return F.silu(y), xp[:, -(k - 1):]
 
@@ -100,6 +102,14 @@ def init_mamba_state(cfg: ArchConfig, batch: int, dtype, device) -> Params:
 # ---------------------------------------------------------------------------
 # mLSTM (xLSTM): matrix-memory LSTM with a parallel (attention-like) prefill
 # ---------------------------------------------------------------------------
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor, whose ``log_sigmoid_backward`` DTensor
+    has no sharding rule for, the same function from pointwise ops."""
+    if sharding.is_dtensor(x):
+        return torch.clamp(x, max=0) - torch.log1p(torch.exp(-x.abs()))
+    return F.logsigmoid(x)
+
+
 def mlstm_dims(cfg: ArchConfig) -> Tuple[int, int]:
     """(heads H, head dim dh): the block up-projects d to 2d and splits it."""
     return cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
@@ -119,12 +129,12 @@ def mlstm_block(
     h, dh = mlstm_dims(cfg)
     up = x @ p["w_up"]
     z = F.silu(x @ p["w_z"])
-    q = (up @ p["wq"]).reshape(b, s, h, dh)
-    k = (up @ p["wk"]).reshape(b, s, h, dh) / torch.tensor(math.sqrt(dh)).to(x.dtype)
-    v = (up @ p["wv"]).reshape(b, s, h, dh)
+    q = layers.split_heads(up @ p["wq"], h, dh)
+    k = layers.split_heads(up @ p["wk"], h, dh) / torch.tensor(math.sqrt(dh)).to(x.dtype)
+    v = layers.split_heads(up @ p["wv"], h, dh)
     gates = up.float() @ p["w_if"].float() + p["if_bias"]
     i_pre, f_pre = gates[..., :h], gates[..., h:]  # (B,S,H)
-    logf = F.logsigmoid(f_pre)
+    logf = _logsigmoid(f_pre)
     qf, kf, vf = q.float(), k.float(), v.float()
 
     if state is not None and s == 1:
@@ -151,7 +161,7 @@ def mlstm_block(
         dprime = torch.exp(dmat - m_row[:, :, None, :])
         w = torch.einsum("bqhd,bkhd->bqkh", qf, kf) * dprime
         den = torch.maximum(w.sum(2).abs(), torch.exp(-m_row))  # (B,S,H)
-        y = torch.einsum("bqkh,bkhd->bqhd", w, vf) / den[..., None]
+        y = torch.einsum("bqkh,bkhd->bqhd", w.contiguous(), vf.contiguous()) / den[..., None]
         if state is not None:
             # m_T = max_u (i_u + lf_T - lf_u); C_T = sum_u e^{i_u+lf_T-lf_u-m_T} k_u v_u^T
             tailw = i_pre + lf_cum[:, -1:, :] - lf_cum  # (B,S,H)
@@ -161,7 +171,7 @@ def mlstm_block(
             state["n"].copy_(torch.einsum("bsh,bshk->bhk", wgt, kf))
             state["m"].copy_(m_T)
 
-    y = y.to(x.dtype).reshape(b, s, 2 * d)
+    y = sharding.merge_heads(y.to(x.dtype))
     y = layers.apply_norm(p["norm"], y) * z
     return y @ p["w_down"], state
 
@@ -202,7 +212,7 @@ def slstm_block(
     for t in range(s):
         g = wx[:, t] + hprev @ rw + gb
         ig, fg, zg, og = g.chunk(4, dim=-1)
-        logf = F.logsigmoid(fg)
+        logf = _logsigmoid(fg)
         m_new = torch.maximum(logf + m, ig)
         i = torch.exp(ig - m_new)
         f = torch.exp(logf + m - m_new)

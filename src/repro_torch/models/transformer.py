@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..distribution import sharding
 from ..kernels import ops as kops
 from . import layers, moe, ssm
 
@@ -119,7 +120,10 @@ def _layer(tree, i: int):
 def _apply_block(p: Params, x: torch.Tensor, kind: str, cfg: ArchConfig, positions, cache):
     """One block, the cache updated in place.  Returns (x_out, aux): the
     MoE's f32 load-balancing loss, or the Python float 0.0 for any other
-    block (no tensor is made for it)."""
+    block (no tensor is made for it).  Under an fsdp mesh the block's
+    weights are gathered over the data axes here, inside any remat, so a
+    recompute gathers them again."""
+    p = sharding.gather_fsdp(p)
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
     if kind not in ("attn", "moe"):  # recurrent mixers
         fn = {"mamba2": ssm.mamba2_block, "mlstm": ssm.mlstm_block,
@@ -193,7 +197,10 @@ class Model:
         if self.cfg.frontend == "vit" and "patch_embeds" in batch:
             pe = _project(batch["patch_embeds"], params["frontend"]["patch_proj"])
             npatch = min(pe.shape[1], x.shape[1])
-            x = torch.cat([pe[:, :npatch].to(x.dtype), x[:, npatch:]], dim=1)
+            # hinted as the embedding is: the projection's partial sums over
+            # ``model`` would otherwise ride on into the trunk
+            x = layers.hint(torch.cat([pe[:, :npatch].to(x.dtype), x[:, npatch:]], dim=1),
+                            "batch", "seq", None)
         return x
 
     def _encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -201,18 +208,18 @@ class Model:
         frontend): non-causal attention blocks without RoPE, then ln_f."""
         cfg = self.cfg
         h = _project(frames, params["frontend"]["patch_proj"]) if cfg.frontend else frames
-        x = h.to(torch_dtype(cfg))
+        x = layers.hint(h.to(torch_dtype(cfg)), "batch", "seq", None)
         hd = cfg.head_dim_
         blocks = params["encoder"]["blocks"]
         b, s, _ = x.shape
         for i in range(cfg.n_encoder_layers):
-            bp = _layer(blocks, i)
+            bp = sharding.gather_fsdp(_layer(blocks, i))
             hh = layers.apply_norm(bp["ln1"], x, cfg.norm)
             q = (hh @ bp["attn"]["wq"]).reshape(b, s, cfg.n_heads, hd)
             k = (hh @ bp["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
             v = (hh @ bp["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
             a = kops.flash_attention(q, k, v, causal=False)
-            x = x + a.reshape(b, s, cfg.n_heads * hd) @ bp["attn"]["wo"]
+            x = x + sharding.merge_heads(a) @ bp["attn"]["wo"]
             hh = layers.apply_norm(bp["ln2"], x, cfg.norm)
             x = x + layers.apply_mlp(bp["mlp"], hh, cfg.mlp)
         return layers.apply_norm(params["encoder"]["ln_f"], x, cfg.norm)
@@ -252,7 +259,7 @@ class Model:
             bc = _layer(cache["groups"][0], i) if cache is not None else None
             x, aux = _apply_block(_layer(gp, i), x, "attn", cfg, positions, bc)
             aux_total = aux_total + aux
-            cp = _layer(cross, i)
+            cp = sharding.gather_fsdp(_layer(cross, i))
             h = layers.apply_norm(cp["ln"], x, cfg.norm)
             cc = _layer(cache["cross"], i) if cache is not None else None
             x = x + layers.cross_attention(cp["attn"], h, cfg, enc_out, cc)
@@ -273,6 +280,7 @@ class Model:
         prefill, a VLM's "patch_embeds" (B,n_patches,frontend_dim) or an
         encoder-decoder's "frames" (B,frontend_len,frontend_dim)."""
         cfg = self.cfg
+        params = _gather_top(params)
         tokens = batch["tokens"]
         b, s = tokens.shape
         if positions is None:
@@ -298,7 +306,7 @@ class Model:
         cfg = self.cfg
         logits, _, aux = self.forward(params, batch)
         tokens = batch["tokens"]
-        targets = torch.roll(tokens, -1, dims=1)
+        targets = layers.roll_seq(tokens, -1)
         mask = torch.ones(targets.shape, dtype=torch.float32, device=tokens.device)
         mask[:, -1] = 0.0
         ce = _xent(logits, targets, mask)
@@ -315,31 +323,68 @@ class Model:
         reference): one extra block over [emb(t) ; emb(t+1)] predicting token
         t+2, the last two positions masked."""
         cfg = self.cfg
+        params = _gather_top(params)
         tokens = batch["tokens"]
         b, s = tokens.shape
         emb = layers.embed(params["embedding"], tokens)
-        nxt = torch.roll(emb, -1, dims=1)
+        nxt = layers.roll_seq(emb, -1)
         h = torch.cat([emb, nxt], dim=-1) @ params["mtp"]["proj"]
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         h, _ = _apply_block(params["mtp"]["block"], h, "attn", cfg, positions, None)
         h = layers.apply_norm(params["mtp"]["ln"], h, cfg.norm)
         head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
         logits = layers.lm_logits(head, h, cfg.tie_embeddings)
-        t2 = torch.roll(tokens, -2, dims=1)
+        t2 = layers.roll_seq(tokens, -2)
         mask = torch.ones(t2.shape, dtype=torch.float32, device=tokens.device)
         mask[:, -2:] = 0.0
         return _xent(logits, t2, mask)
 
 
-def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean token cross-entropy of f32 logits.  Under a mesh the
-    vocab-sharded logits are gathered over ``model`` first: DTensor's
-    ``gather`` along a sharded dim is not exact."""
-    logits = layers.hint(logits, "batch", "seq", None)
+def _gather_top(params: Params) -> Params:
+    """``params`` with the leaves outside the layer stacks (embedding, final
+    norms, head, frontend, the MTP projection) gathered over the data axes
+    under an fsdp mesh; the stacks' layers are gathered where they run."""
+    if sharding.current() is None:
+        return params
+    out = dict(params)
+    for k in ("embedding", "ln_f", "lm_head", "frontend"):
+        if k in params:
+            out[k] = sharding.gather_fsdp(params[k])
+    for k, stack in (("encoder", "blocks"), ("mtp", "block")):
+        if k in params:
+            out[k] = {n: v if n == stack else sharding.gather_fsdp(v)
+                      for n, v in params[k].items()}
+    return out
+
+
+def _nll_sum(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    nll = (logz - gold) * mask
-    return nll.sum() / mask.sum().clamp(min=1.0)
+    return ((logz - gold) * mask).sum()
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean token cross-entropy of f32 logits.  Under a mesh the
+    vocab-sharded logits are gathered over ``model`` first (DTensor's
+    ``gather`` along a sharded dim is not exact), and each rank sums the
+    loss of its own rows in ``local_map``: DTensor's own ``gather`` backward
+    would make every rank a zero gradient of the whole batch's logits."""
+    logits = layers.hint(logits, "batch", "seq", None)
+    if not sharding.is_dtensor(logits):
+        return _nll_sum(logits, targets, mask) / mask.sum().clamp(min=1.0)
+    from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    targets = targets.redistribute(mesh, pl)
+    if sharding.is_dtensor(mask):
+        mask = mask.redistribute(mesh, pl)
+    else:
+        mask = distribute_tensor(mask, mesh, pl, src_data_rank=None)
+    total = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    nll = local_map(_nll_sum, out_placements=total, in_placements=(pl, pl, pl),
+                    device_mesh=mesh)(logits, targets, mask)
+    return nll / mask.sum().clamp(min=1.0)
 
 
 def _project(inputs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

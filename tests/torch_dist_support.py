@@ -435,3 +435,54 @@ def check_params(ref, port, name, moment):
                                                           key=lambda kv: -kv[1])[:3]
         np.testing.assert_allclose(port[name][moment + "_losses"], want[moment + "_losses"],
                                    rtol=LOSS_RTOL)
+
+
+def sharded_decode_case(rank, world, out_dir):
+    """Reduced f32 smollm-135m: a prefill of 16 tokens and two decode steps
+    on a (2, 2) mesh, parameters placed without fsdp and the cache by
+    ``cache_specs`` (its sequence over ``model``, so every write lands in
+    each rank's block of rows, and the decode kernel takes it through
+    ``local_map``); rank 0 also runs the same with no mesh and saves the
+    logits and the final K/V cache of both."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.models import bundle
+
+    cfg = port_cfg("smollm-135m", {})
+    mb = bundle(cfg)
+    params = mb.init(torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))).to(torch.int32)
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 4, 1))).to(torch.int32)
+
+    def run(m):
+        out = {}
+        if m is None:
+            p, place = params, (lambda t, s: t)
+        else:
+            p = shd.distribute(params, shd.param_specs(params, m, False), m)
+            place = (lambda t, s: shd.distribute(t, s, m))
+        import contextlib
+
+        ctx = shd.use_mesh(m, fsdp=False) if m is not None else contextlib.nullcontext()
+        rep = implicit_replication() if m is not None else contextlib.nullcontext()
+        with ctx, rep:
+            batch = {"tokens": place(prompt, (shd.data_axes(m)[0] if m is not None else None,
+                                              None))}
+            logits, cache = mb.prefill_fn(p, batch, max_len=32)
+            out["prefill"] = full(logits)
+            for i in range(2):
+                tok = place(steps[i], ("data", None) if m is not None else None)
+                idx = place(torch.tensor(16 + i, dtype=torch.int32), ())
+                logits, cache = mb.decode_fn(p, cache, tok, idx)
+                out[f"decode{i}"] = full(logits)
+            for k, v in paths(cache).items():
+                if k.endswith("/k") or k.endswith("/v"):
+                    out[k] = full(v)
+        return out
+
+    sharded = run(mesh((2, 2), ("data", "model")))
+    if rank == 0:
+        np.savez(Path(out_dir) / "sharded.npz", **sharded)
+        np.savez(Path(out_dir) / "plain.npz", **run(None))
