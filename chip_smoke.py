@@ -135,8 +135,20 @@ Phases, each of which passes or raises (any failure exits non-zero):
      the launches a step phase 11 measured (all ``.tc``) and to one real
      step's, its memory (arguments + peak) within COST_MEM_RANGE of the rise
      in ``max_memory_allocated`` over one real step, and its roofline bound
-     as a share of phase 11 (b)'s median step (reported); printed as a
-     ``{"cost_analysis": ...}`` JSON line.
+     as a share of phase 11 (b)'s median step (reported); (c) every arch's
+     prefill_32k, decode_32k and long_500k cells at full width on the fake
+     pod16x16 group, "ok" or, where the arch does not support the shape as
+     the reference decides, "skipped"; (d) every arch's ``reduced()`` train,
+     prefill and decode cells on a fake (2, 2) group, all "ok"; in both the
+     kernel calls booked equal to ``cost_expected_calls``, the roofline
+     terms reported; (e) the sharded train step's loss and every gradient
+     leaf on 4 gloo CPU ranks of a (2, 2) mesh against the unsharded step,
+     at ``reduced()``, for COST_GLOO_ARCHS, within COST_GLOO_LOSS_REL and
+     COST_GLOO_LEAF_REL.  (c)-(e) run in processes of their own at the
+     lowest priority, started with (a) before phase 11 (xlstm-125m's
+     prefill_32k alone in one: it counts its sLSTM loop's 3 x 32768 steps).
+     Printed as a ``{"cost_analysis": ...}`` JSON line with this torch's
+     version and every (arch, cell)'s status.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device,
 or without the repository beside it, the script fails before printing any
 result.
@@ -2587,6 +2599,28 @@ COST_FLOPS_REL = 0.02
 #: (b) the counted memory of one step (arguments + the peak of the rest)
 #: over the rise in max_memory_allocated across one real step on the card
 COST_MEM_RANGE = (0.5, 2.0)
+#: (c) every arch's full-width inference cells on the fake pod16x16 group;
+#: long_500k is skipped where the reference skips it (full attention).
+#: Three worker processes: xlstm-125m's prefill_32k alone (its sLSTM loop
+#: runs 32768 steps per layer), the other prefills with long_500k, and the
+#: decodes with (d)
+COST_FULL_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+#: (d) every arch's reduced() train, prefill and decode cells on a fake
+#: (2, 2) group, as tests/test_torch_dryrun.py's test_reduced_cells builds
+#: them: (name, seq_len, global_batch, kind, microbatch)
+COST_REDUCED_SHAPES = (("train_4k", 8, 16, "train", 16), ("prefill_32k", 8, 4, "prefill", 0),
+                       ("decode_32k", 8, 4, "decode", 0))
+COST_WORKERS_TIMEOUT_S = 600
+#: (e) the sharded train step of these archs on 4 gloo CPU ranks on a
+#: (2, 2) mesh at reduced(), against the unsharded step, with the limits of
+#: tests/test_torch_distributed*.py: {arch: (MoE mode, reduced() overrides)}.
+#: Mixtral's expert-parallel layer at capacity 8, as tests/test_torch_moe_ep.py
+#: runs it: each rank's buffers then drop no token, nor do the unsharded
+#: step's dispatch groups, which drop others at a tighter capacity
+COST_GLOO_ARCHS = {ZAMBA2: ("dispatch", {}), MIXTRAL: ("alltoall", {"capacity_factor": 8.0}),
+                   DEEPSEEK: ("dispatch", {}), XLSTM: ("dispatch", {})}
+COST_GLOO_LOSS_REL, COST_GLOO_LEAF_REL = 1e-5, 1e-4
+COST_GLOO_SEQ, COST_GLOO_BATCH = 16, 8
 
 
 def start_dryrun():
@@ -2639,21 +2673,31 @@ def smollm_analytic_flops(shape) -> float:
     return 4 * n * proj + 3 * head + 16 * n * (2 * fwd_attn + bwd_attn)
 
 
-def phase_cost_analysis(torch, ops, device_label: str, training: dict, dry) -> dict:
+def phase_cost_analysis(torch, ops, device_label: str, training: dict, dry, workers) -> dict:
     """Phase 13: (a) the dry-run's smollm-135m cells on the fake pod16x16
     group (``cost_dryrun_cells``), (b) one rank at phase 11 (b)'s shape
-    (``cost_one_rank``).  Returns the {"cost_analysis": ...} summary."""
+    (``cost_one_rank``), (c)-(e) every arch's sharded cells and the gloo
+    steps (``cost_workers_results``).  Returns the {"cost_analysis": ...}
+    summary, with this torch's version and each (arch, cell)'s status."""
     t0 = time.perf_counter()
     log("phase 13 (a): the dry-run of smollm-135m on a fake pod16x16 process group")
     cells = cost_dryrun_cells(dry, device_label)
     t_a = time.perf_counter() - t0
     log("phase 13 (b): one rank at phase 11 (b)'s shape, counted and on the card")
     one_rank = cost_one_rank(torch, ops, device_label, training["smollm"])
+    t_b = time.perf_counter()
+    log(f"phase 13 (c)-(e) on torch {torch.__version__}: every arch's cells on fake groups, "
+        "the sharded train step on 4 gloo ranks")
+    archs = cost_workers_results(workers, device_label)
+    t_ce = time.perf_counter() - t_b
     total = time.perf_counter() - t0
     log(f"phase 13: {total:.1f} s ((a) waited {t_a:.1f} s; the dry-run took "
-        f"{dry[3]:.1f} s beside phases 11-12)")
-    return dict(device=device_label, dryrun=cells, one_rank=one_rank, dryrun_s=dry[3],
-                seconds=total)
+        f"{dry[3]:.1f} s beside phases 11-12; (c)-(e) waited {t_ce:.1f} s, "
+        f"{archs['waited_s']:.1f} s since their start)")
+    status = {f"{SMOLLM}/{k}": v["status"] for k, v in cells.items()}
+    status.update(archs["status"])
+    return dict(device=device_label, torch=torch.__version__, status=status, dryrun=cells,
+                one_rank=one_rank, dryrun_s=dry[3], archs=archs, seconds=total)
 
 
 def cost_dryrun_cells(dry, device_label: str) -> dict:
@@ -2783,6 +2827,257 @@ def cost_one_rank(torch, ops, device_label: str, run: dict) -> dict:
                 bound_over_step=bound_s / median)
 
 
+def cost_expected_calls(cfg, kind: str) -> dict:
+    """The kernel calls one step of ``kind`` books (tests/test_torch_dryrun.py's
+    ``expected_calls``): each kernel layer once, the blocks of the layer
+    groups twice under the train step's remat (the shared attention block,
+    the encoder-decoder trunk and the MTP block are not rematerialized)."""
+    from repro_torch.models import transformer
+
+    m = transformer.Model(cfg)
+    attn = sum(n for k, n in m._groups() if k in ("attn", "moe"))
+    mamba = sum(n for k, n in m._groups() if k == "mamba2")
+    shared, mla = m.n_shared_apps, cfg.attention == "mla"
+    if cfg.enc_dec:
+        enc, dec = cfg.n_encoder_layers, cfg.n_layers
+        return {"train": {"flash_attention": enc + 2 * dec},
+                "prefill": {"flash_attention": enc + 2 * dec},
+                "decode": {"decode_attention": dec, "flash_attention": dec}}[kind]
+    calls = {"train": {"flash_attention": 2 * attn + shared + (1 if cfg.mtp_depth else 0),
+                       "ssd_scan": 2 * mamba},
+             "prefill": {"flash_attention": attn + shared, "ssd_scan": mamba},
+             "decode": {"decode_attention": 0 if mla else attn + shared}}[kind]
+    return {k: v for k, v in calls.items() if v}
+
+
+def cost_cells_worker(out_path: str, cells) -> None:
+    """Phase 13 (c) and (d), in a process of its own at the lowest
+    priority: each (arch, shape name, reduced shape or None) of ``cells``
+    through ``launch.dryrun.run_cell`` on a fake process group (full width
+    on pod16x16, or ``reduced()`` on (2, 2) with the given
+    COST_REDUCED_SHAPES entry); the summaries go to ``out_path`` as JSON
+    after every cell."""
+    os.nice(19)
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    res = {}
+    for arch, name, red in cells:
+        t0 = time.perf_counter()
+        if red is None:
+            key, cell = f"{arch}/{name}", dryrun.run_cell(arch, name, False, out_dir=None)
+        else:
+            shape = ShapeConfig(*red[:4], microbatch=red[4])
+            key = f"{arch}/reduced/{shape.kind}"
+            cell = dryrun.run_cell(arch, name, False, cfg=reduced(get_config(arch)), shape=shape,
+                                   mesh_shape=((2, 2), ("data", "model")), out_dir=None)
+        pd = cell.get("per_device", {})
+        res[key] = dict(status=cell["status"], error=cell.get("error"),
+                        traceback=(cell.get("traceback") or "")[-1500:] or None,
+                        kernels={k: v["calls"] for k, v in cell.get("kernels", {}).items()},
+                        flops=pd.get("flops"), hbm_bytes=pd.get("hbm_bytes"),
+                        collective_bytes=pd.get("collective_bytes"),
+                        roofline=cell.get("roofline"), useful_ratio=cell.get("useful_ratio"),
+                        count_s=cell.get("count_s"), wall_s=time.perf_counter() - t0)
+        with open(out_path + ".tmp", "w") as f:
+            json.dump(res, f)
+        os.replace(out_path + ".tmp", out_path)
+
+
+def cost_gloo_step(arch: str, mesh) -> dict:
+    """Phase 13 (e): reduced ``arch``'s loss and every gradient leaf on batch
+    0 from seeded weights, with the parameters placed on ``mesh`` as the
+    train step places them (fsdp) and the batch over the data axis, or
+    plain for None; gathered whole as f32 numpy ({"loss", "leaf<i>"})."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distribution import sharding as shd
+    from repro_torch.models import bundle
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.training import data as tdata
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    def whole(x):
+        return (x.full_tensor() if shd.is_dtensor(x) else x).detach().float().numpy()
+
+    moe_impl, overrides = COST_GLOO_ARCHS[arch]
+    moe_mod.set_moe_impl(moe_impl)
+    cfg = reduced(get_config(arch), **overrides)
+    mb = bundle(cfg)
+    params = mb.init(torch.Generator().manual_seed(0), device="cpu")
+    dcfg = tdata.DataConfig(vocab_size=cfg.vocab_size, seq_len=COST_GLOO_SEQ,
+                            global_batch=COST_GLOO_BATCH,
+                            frontend=cfg.frontend or ("audio" if cfg.enc_dec else None),
+                            frontend_len=cfg.frontend_len, frontend_dim=cfg.frontend_dim,
+                            dtype=cfg.dtype)
+    batch = tdata.get_batch(dcfg, 0, device="cpu")
+    ctx = rep = contextlib.nullcontext()
+    if mesh is not None:
+        params = shd.distribute(params, shd.param_specs(params, mesh, True), mesh)
+        batch = tdata.shard_batch(batch, mesh)
+        ctx, rep = shd.use_mesh(mesh, fsdp=True), implicit_replication()
+    with ctx:
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+        with rep:
+            loss, _ = mb.loss_fn(tree_unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+        out = {"loss": whole(loss)}
+        out.update((f"leaf{i}", whole(g)) for i, g in enumerate(grads))
+    moe_mod.set_moe_impl("dispatch")
+    return out
+
+
+def cost_gloo_rank(rank: int, world: int, init: str, out_dir: str, plain: bool) -> None:
+    """Phase 13 (e)'s process: one gloo rank of the (2, 2) mesh (rank 0
+    saves the gathered results), or with ``plain`` the unsharded runs."""
+    os.nice(19)
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    if plain:
+        for arch in COST_GLOO_ARCHS:
+            np.savez(os.path.join(out_dir, f"{arch}-plain.npz"), **cost_gloo_step(arch, None))
+        return
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    try:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        mesh = DeviceMesh("cpu", torch.arange(world).reshape(2, 2),
+                          mesh_dim_names=("data", "model"))
+        for arch in COST_GLOO_ARCHS:
+            out = cost_gloo_step(arch, mesh)
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{arch}-sharded.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_cost_workers():
+    """Phase 13 (c)-(e)'s processes, started beside (a) before phase 11:
+    three dry-run workers (``cost_cells_worker``) and the four gloo ranks of
+    (e) with the unsharded run beside them (``cost_gloo_rank``).  Returns
+    {"procs": [...], "dir": ..., "cells": {path: cells}, "started": t}."""
+    import multiprocessing as mp
+
+    from repro_torch.configs import ARCHS
+
+    out = os.path.join(ROOT, "build", "phase13", "workers")
+    os.makedirs(out)
+    archs = sorted(ARCHS)
+    full = [(a, n, None) for n in COST_FULL_SHAPES for a in archs]
+    slow = [(XLSTM, "prefill_32k", None)]
+    decodes = [c for c in full if c[1] == "decode_32k"]
+    groups = {
+        "c_xlstm_prefill.json": slow,
+        "c_prefill_long.json": [c for c in full if c not in slow + decodes],
+        "c_decode_d.json": decodes + [(a, r[0], r) for a in archs for r in COST_REDUCED_SHAPES],
+    }
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=cost_cells_worker, args=(os.path.join(out, name), cells))
+             for name, cells in groups.items()]
+    init = f"file://{os.path.join(out, 'rendezvous')}"
+    procs += [ctx.Process(target=cost_gloo_rank, args=(r, 4, init, out, False)) for r in range(4)]
+    procs.append(ctx.Process(target=cost_gloo_rank, args=(0, 4, init, out, True)))
+    for p in procs:
+        p.start()
+    return dict(procs=procs, dir=out, cells=groups, started=time.perf_counter())
+
+
+def stop_processes(procs) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+
+
+def cost_workers_results(workers, device_label: str) -> dict:
+    """Phase 13 (c)-(e): waits for the processes (COST_WORKERS_TIMEOUT_S from
+    their start), then gates (c) each full-width cell "ok", or "skipped"
+    exactly where the arch does not support the shape (the reference's
+    skip), (d) each reduced cell "ok", and both with the booked kernel
+    calls of ``cost_expected_calls``; (e) each arch's sharded loss within
+    COST_GLOO_LOSS_REL of the unsharded loss and every gradient leaf within
+    COST_GLOO_LEAF_REL of its leaf's max."""
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config, reduced
+    from repro_torch.models import bundle
+
+    deadline = workers["started"] + COST_WORKERS_TIMEOUT_S
+    for p in workers["procs"]:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    hung = [p.pid for p in workers["procs"] if p.is_alive()]
+    waited = time.perf_counter() - workers["started"]
+    stop_processes(workers["procs"])
+    failed = [(p.pid, p.exitcode) for p in workers["procs"] if p.exitcode not in (0, None)]
+    cells, errors = {}, []
+    for name in workers["cells"]:
+        path = os.path.join(workers["dir"], name)
+        if os.path.exists(path):
+            with open(path) as f:
+                cells.update(json.load(f))
+    for group in workers["cells"].values():
+        for arch, name, red in group:
+            key = f"{arch}/{name}" if red is None else f"{arch}/reduced/{red[3]}"
+            cell = cells.get(key)
+            if cell is None:
+                errors.append(f"{key}: not counted")
+                continue
+            cfg = get_config(arch) if red is None else reduced(get_config(arch))
+            kind = SHAPES[name].kind if red is None else red[3]
+            skip = red is None and not bundle(cfg).supports_shape(SHAPES[name])
+            want = "skipped" if skip else "ok"
+            if cell["status"] != want:
+                errors.append(f"{key}: {cell['status']} (want {want}): {cell.get('error')}\n"
+                              f"{cell.get('traceback')}")
+            elif want == "ok" and cell["kernels"] != cost_expected_calls(cfg, kind):
+                errors.append(f"{key}: booked {cell['kernels']}, want "
+                              f"{cost_expected_calls(cfg, kind)}")
+            if cell["status"] == "ok":
+                r = cell["roofline"]
+                log(f"  {key}: compute {r['compute_s'] * 1e3:.4g} ms, memory "
+                    f"{r['memory_s'] * 1e3:.4g} ms, collective {r['collective_s'] * 1e3:.4g} ms, "
+                    f"{r['dominant']}, useful {cell['useful_ratio']:.4f}, booked "
+                    f"{cell['kernels']}, counted in {cell['count_s']:.1f} s")
+            else:
+                log(f"  {key}: {cell['status']}")
+    gloo = {}
+    for arch in COST_GLOO_ARCHS:
+        paths = [os.path.join(workers["dir"], f"{arch}-{k}.npz") for k in ("sharded", "plain")]
+        if not all(os.path.exists(q) for q in paths):
+            errors.append(f"(e) {arch}: no result")
+            continue
+        got, want = (np.load(q) for q in paths)
+        loss_rel = float(abs(got["loss"] - want["loss"]) / abs(want["loss"]))
+        leaves = [k for k in want.files if k != "loss"]
+        leaf_rel = max(float(np.abs(got[k] - want[k]).max() / max(np.abs(want[k]).max(), 1e-30))
+                       for k in leaves)
+        gloo[arch] = dict(moe_impl=COST_GLOO_ARCHS[arch][0], overrides=COST_GLOO_ARCHS[arch][1],
+                          loss=float(got["loss"]),
+                          loss_unsharded=float(want["loss"]), loss_rel=loss_rel,
+                          max_leaf_rel=leaf_rel, leaves=len(leaves))
+        log(f"  (e) {arch} ({COST_GLOO_ARCHS[arch][0]}) on 4 gloo ranks (2, 2): loss "
+            f"{got['loss']:.7f}"
+            f" vs {want['loss']:.7f} unsharded ({loss_rel:.2e}), worst of {len(leaves)} gradient "
+            f"leaves {leaf_rel:.2e} of its max")
+        if loss_rel > COST_GLOO_LOSS_REL or leaf_rel > COST_GLOO_LEAF_REL:
+            errors.append(f"(e) {arch}: loss {loss_rel:.3g} (limit {COST_GLOO_LOSS_REL:g}), "
+                          f"leaf {leaf_rel:.3g} (limit {COST_GLOO_LEAF_REL:g})")
+    if hung or failed or errors:
+        raise AssertionError(f"phase 13 (c)-(e): processes still running {hung}, failed "
+                             f"{failed}; " + "\n".join(errors))
+    return dict(torch=torch.__version__, waited_s=waited,
+                status={k: v["status"] for k, v in sorted(cells.items())}, cells=cells,
+                gloo=gloo, card=device_label)
+
+
 def main() -> int:
     import torch
 
@@ -2829,16 +3124,20 @@ def main() -> int:
     entries[0]["families"], entries[1]["families"] = fam_flash, fam_decode
     torch.cuda.empty_cache()
     dry = start_dryrun()
+    workers = None
     try:
+        workers = start_cost_workers()
         training, train_counts, train_times = phase_training(torch, F, ops, ref, _build, fa, ssd)
         torch.cuda.empty_cache()
         distribution = phase_distribution(torch, training)
         torch.cuda.empty_cache()
-        cost_analysis = phase_cost_analysis(torch, ops, device_label, training, dry)
+        cost_analysis = phase_cost_analysis(torch, ops, device_label, training, dry, workers)
     finally:
         if dry[0].poll() is None:
             dry[0].kill()
             dry[0].wait()
+        if workers is not None:
+            stop_processes(workers["procs"])
     for e in entries:
         e["launches_by_path"]["training"] = train_counts.get(e["name"], 0)
         if e["name"] in train_times:

@@ -43,6 +43,16 @@ all true while the counter is active: its gathers and scatters are counted
 for every routed slot, an upper bound (the expert FFN runs on the
 capacity-sized buffer either way).
 
+Meta outputs: a meta kernel runs in Python and checks its shapes
+symbolically (~150 us for a binary elementwise op in torch 2.13), and a
+loop over time (xLSTM's sLSTM) repeats the same ops on the same shapes
+tens of thousands of times.  The counter keeps, per
+op and input signature (shapes, strides, dtypes and every non-tensor
+argument), the metadata of the outputs a functional op gave on ``meta``
+tensors, and makes fresh empty tensors with it when the signature comes
+again.  Views, in-place and ``out=`` ops, collectives and ops whose output
+shape depends on values always run their kernel.
+
 Memory: ``track_arguments`` records the argument tensors (parameters,
 optimizer state, batch or cache); every other storage a counted op makes
 adds its bytes to the live total when it is made and takes them off when
@@ -55,11 +65,11 @@ import contextlib
 import dataclasses
 import math
 import weakref
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten, tree_leaves
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from ..kernels import cost
 from . import sharding
@@ -124,6 +134,32 @@ def _returns_alias(func) -> bool:
     hit = _ALIASING.get(func)
     if hit is None:
         hit = _ALIASING[func] = any(r.alias_info is not None for r in func._schema.returns)
+    return hit
+
+
+_MEMOIZABLE: Dict[Any, bool] = {}
+_VALUE_TAGS = tuple(getattr(torch.Tag, t) for t in (
+    "dynamic_output_shape", "data_dependent_output", "nondeterministic_seeded")
+    if hasattr(torch.Tag, t))
+
+
+class _Meta(NamedTuple):
+    """A tensor output's metadata, kept for ``CostCounter._run``."""
+
+    shape: tuple
+    stride: tuple
+    dtype: torch.dtype
+
+
+def _memoizable(func) -> bool:
+    """Whether an op's outputs are fresh tensors whose metadata its inputs'
+    metadata fixes: an aten op that is no view, aliases and mutates
+    nothing, and has no value-dependent output."""
+    hit = _MEMOIZABLE.get(func)
+    if hit is None:
+        hit = _MEMOIZABLE[func] = (
+            func.namespace == "aten" and not func.is_view and not _returns_alias(func)
+            and not func._schema.is_mutable and not any(t in func.tags for t in _VALUE_TAGS))
     return hit
 
 
@@ -203,6 +239,9 @@ class CostCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.temp_bytes = 0
         self._known: Dict[int, int] = {}  # storage key -> bytes (0: an argument's)
+        #: (op, input signature) -> the outputs' tree and metadata on meta
+        #: tensors (None: run every kernel)
+        self._meta_outputs: Optional[Dict[Any, Any]] = {}
         self._stack = contextlib.ExitStack()
         self._depth = 0  # the mode re-enters itself to count decompositions
 
@@ -272,12 +311,45 @@ class CostCounter(TorchDispatchMode):
                 r = func.decompose(*args, **kwargs)
             if r is not NotImplemented:
                 return r
-        out = func(*args, **kwargs)
+        out = self._run(func, args, kwargs, flat)
         self._count(func, args, kwargs, flat, out)
         if not _returns_alias(func):  # views, in-place and out= ops make no storage
             for t in _tensors(out):
                 self._register(t)
         return out
+
+    def _run(self, func, args, kwargs, flat):
+        """``func(*args, **kwargs)``, or on meta tensors the outputs of an
+        earlier call with the same signature made afresh (module docstring)."""
+        memo = self._meta_outputs
+        if memo is None or not _memoizable(func):
+            return func(*args, **kwargs)
+        sig, tensors = [], 0
+        for a in flat:
+            if isinstance(a, torch.Tensor):
+                if a.device.type != "meta" or type(a) is not torch.Tensor:
+                    return func(*args, **kwargs)
+                sig.append((tuple(a.shape), a.stride(), a.dtype))
+                tensors += 1
+            elif isinstance(a, (bool, int, float, str, torch.dtype, torch.device, torch.layout,
+                                torch.memory_format)) or a is None:
+                sig.append(a)
+            else:
+                return func(*args, **kwargs)
+        if not tensors:  # a factory op: its device is an argument, not an input's
+            return func(*args, **kwargs)
+        key = (func, tuple(sig))
+        hit = memo.get(key)
+        if hit is None:
+            out = func(*args, **kwargs)
+            leaves, spec = tree_flatten(out)
+            if all(t.device.type == "meta" for t in leaves if isinstance(t, torch.Tensor)):
+                memo[key] = (spec, [_Meta(tuple(t.shape), t.stride(), t.dtype)
+                                    if isinstance(t, torch.Tensor) else t for t in leaves])
+            return out
+        spec, leaves = hit
+        return tree_unflatten([torch.empty_strided(m.shape, m.stride, dtype=m.dtype, device="meta")
+                               if isinstance(m, _Meta) else m for m in leaves], spec)
 
     def _count(self, func, args, kwargs, flat, out) -> None:
         outs = _tensors(out)

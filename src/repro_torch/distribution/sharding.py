@@ -45,7 +45,7 @@ __all__ = [
     "DEFAULT_RULES", "MeshShape", "use_mesh", "current", "constrain", "mesh_axes",
     "param_specs", "opt_state_specs", "batch_specs", "cache_specs", "placements",
     "distribute", "is_trivial", "is_dtensor", "data_axes", "splits_heads", "logical_spec",
-    "merge_heads", "distribute_cache", "gather_fsdp",
+    "merge_heads", "distribute_cache", "gather_fsdp", "local_layout", "per_rank",
 ]
 
 _STATE = threading.local()
@@ -382,6 +382,76 @@ def splits_heads(x, n_heads: int) -> bool:
     ways = math.prod(n for n, pl in zip(x.device_mesh.shape, x.placements)
                      if isinstance(pl, Shard) and pl.dim in (-1, x.ndim - 1))
     return n_heads % ways != 0
+
+
+def local_layout(x, *head_counts: int):
+    """The spec entries of a per-rank region over the DTensor ``x`` (batch
+    first): its batch dim's (the data axes where they divide the batch, or
+    None) and its heads dims' ("model" where it divides every one of
+    ``head_counts``, None without head counts)."""
+    mesh = x.device_mesh
+    sizes = mesh_axes(mesh)
+    daxes = data_axes(mesh)
+    dp = math.prod(sizes[a] for a in daxes)
+    bax = None
+    if daxes and dp > 1 and x.shape[0] % dp == 0:
+        bax = daxes if len(daxes) > 1 else daxes[0]
+    m = sizes.get("model", 1)
+    divide = bool(head_counts) and all(h % m == 0 for h in head_counts)
+    return bax, "model" if m > 1 and divide else None
+
+
+def per_rank(fn, args: Sequence[Any], specs: Sequence[Any], out_specs):
+    """``fn(*args)`` on each rank's blocks through ``local_map``: every
+    DTensor in ``args`` is redistributed to its spec's placements and handed
+    over as its local block; a plain tensor, a number or None goes to every
+    rank as it is (its spec is ignored).  ``out_specs`` places the output: a
+    spec for one tensor, a list of specs for a tuple of them.
+
+    The gradient of an input replicated over a mesh axis that another
+    input's spec splits is a partial sum there: each rank's work used it for
+    its own part of the batch or heads.  ``fn`` sees plain tensors only, so
+    nothing in it goes through DTensor's dispatch (no sharding rule is asked
+    for, and a loop in it dispatches nothing per step)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    sizes = mesh_axes(mesh)
+
+    def named(spec):
+        return {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+
+    keep = [i for i, a in enumerate(args) if a is not None]
+    split = set().union(*(named(specs[i]) for i in keep if is_dtensor(args[i])))
+    local_args, in_pl, grad_pl = [], [], []
+    for i in keep:
+        a = args[i]
+        if is_dtensor(a):
+            pl = placements(specs[i], mesh)
+            a = a.redistribute(mesh, pl)
+            mine = named(specs[i])
+            grad = tuple(Partial() if ax in split and ax not in mine and sizes[ax] > 1 else p
+                         for ax, p in zip(sizes, pl))
+            in_pl.append(pl)
+            grad_pl.append(grad)
+        else:
+            in_pl.append(None)
+            grad_pl.append(None)
+        local_args.append(a)
+
+    def local(*xs):
+        full = [None] * len(args)
+        for i, x in zip(keep, xs):
+            full[i] = x
+        return fn(*full)
+
+    if isinstance(out_specs, list):
+        out_pl = tuple(placements(s, mesh) for s in out_specs)
+    else:
+        out_pl = list(placements(out_specs, mesh))
+    return local_map(local, out_placements=out_pl, in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl), device_mesh=mesh)(*local_args)
 
 
 def gather_fsdp(tree: Any) -> Any:

@@ -21,8 +21,6 @@ kernel.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
 from ..distribution import sharding
@@ -38,67 +36,34 @@ __all__ = [
 ]
 
 
-def _local_layout(mesh, batch: int, heads_divide: bool):
-    """The spec entries of a kernel input's batch dim (the data axes, or
-    None) and heads dim ("model", or None) on ``mesh``."""
-    sizes = sharding.mesh_axes(mesh)
-    daxes = sharding.data_axes(mesh)
-    dp = math.prod(sizes[a] for a in daxes)
-    bax = None
-    if daxes and dp > 1 and batch % dp == 0:
-        bax = daxes if len(daxes) > 1 else daxes[0]
-    m = sizes.get("model", 1)
-    hax = "model" if m > 1 and heads_divide else None
-    return bax, hax
-
-
 def flash_attention(q, k, v, causal: bool = True, sliding_window=None):
     """Flash attention on plain tensors, or on DTensors through ``local_map``
     (each rank attends its own batch rows and heads)."""
     if not sharding.is_dtensor(q):
         return _flash_attention(q, k, v, causal, sliding_window)
-    from torch.distributed.tensor.experimental import local_map
-
-    mesh = q.device_mesh
-    m = sharding.mesh_axes(mesh).get("model", 1)
-    bax, hax = _local_layout(mesh, q.shape[0], q.shape[2] % m == 0 and k.shape[2] % m == 0)
-    pl = sharding.placements((bax, None, hax, None), mesh)
-    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+    bax, hax = sharding.local_layout(q, q.shape[2], k.shape[2])
+    spec = (bax, None, hax, None)
 
     def local(q, k, v):
         return _flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal,
                                 sliding_window)
 
-    return local_map(local, out_placements=list(pl), in_placements=(pl, pl, pl),
-                     device_mesh=mesh)(q, k, v)
+    return sharding.per_rank(local, (q, k, v), (spec,) * 3, spec)
 
 
 def _decode_local(kernel, q, caches, length):
-    """``kernel(q, *caches, length)`` per rank through ``local_map``: q and
-    the caches by batch and KV heads, a DTensor length replicated (by batch
-    where it is one length per slot), a plain length handed to every rank."""
-    from torch.distributed.tensor.experimental import local_map
+    """``kernel(q, *caches, length)`` per rank: q and the caches by batch
+    and KV heads, a DTensor length replicated (by batch where it is one
+    length per slot), a plain length handed to every rank."""
+    bax, hax = sharding.local_layout(q, q.shape[2], caches[0].shape[2])
+    spec = (bax, None, hax, None)
+    specs = [spec[:t.dim()] for t in (q, *caches)]
+    specs.append((bax,) if getattr(length, "dim", lambda: 0)() == 1 else ())
 
-    mesh = q.device_mesh
-    m = sharding.mesh_axes(mesh).get("model", 1)
-    bax, hax = _local_layout(mesh, q.shape[0], q.shape[2] % m == 0 and caches[0].shape[2] % m == 0)
-    placements = sharding.placements
-    pls = [placements((bax, None, hax, None)[:t.dim()], mesh) for t in (q, *caches)]
-    args = [t.redistribute(mesh, pl) for t, pl in zip((q, *caches), pls)]
-    out_pl = pls[0]
-    if sharding.is_dtensor(length):
-        lpl = placements((bax,) if length.dim() == 1 else (), mesh)
-        args.append(length.redistribute(mesh, lpl))
-        pls.append(lpl)
+    def local(q, *rest):
+        return kernel(q.contiguous(), *(t.contiguous() for t in rest[:-1]), rest[-1])
 
-        def local(q, *rest):
-            return kernel(q.contiguous(), *(t.contiguous() for t in rest[:-1]), rest[-1])
-    else:
-        def local(q, *rest):
-            return kernel(q.contiguous(), *(t.contiguous() for t in rest), length)
-
-    return local_map(local, out_placements=list(out_pl), in_placements=tuple(pls),
-                     device_mesh=mesh)(*args)
+    return sharding.per_rank(local, (q, *caches, length), specs, spec)
 
 
 def decode_attention(q, k, v, length):
@@ -125,42 +90,16 @@ def ssd_scan(x, dt, A, B, C, initial_state=None):
     """The SSD scan on plain tensors, or on DTensors through ``local_map``:
     x, dt and the state sharded by batch and heads, B and C by batch, A by
     heads.  A gradient of an input replicated over a mesh axis that the
-    rank's work splits is a partial sum there."""
+    rank's work splits is a partial sum there (``sharding.per_rank``)."""
     if not sharding.is_dtensor(x):
         return _ssd_scan(x, dt, A, B, C, initial_state)
-    from torch.distributed.tensor import Partial
-    from torch.distributed.tensor.experimental import local_map
-
-    placements = sharding.placements
-    mesh = x.device_mesh
-    m = sharding.mesh_axes(mesh).get("model", 1)
-    bax, hax = _local_layout(mesh, x.shape[0], x.shape[2] % m == 0)
+    bax, hax = sharding.local_layout(x, x.shape[2])
     specs = [(bax, None, hax, None), (bax, None, hax), (hax,), (bax, None, None),
-             (bax, None, None)]
-    if initial_state is not None:
-        specs.append((bax, hax, None, None))
-    pls = [placements(s, mesh) for s in specs]
-    args = [t.redistribute(mesh, pl) for t, pl in zip(
-        (x, dt, A, B, C) + ((initial_state,) if initial_state is not None else ()), pls)]
+             (bax, None, None), (bax, hax, None, None)]
 
-    def partial_over(spec, axes):
-        """The placements of ``spec`` with each mesh axis in ``axes`` that
-        the spec leaves replicated turned into a partial sum."""
-        pl = list(placements(spec, mesh))
-        named = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
-        for i, a in enumerate(mesh.mesh_dim_names):
-            if a in axes and a not in named:
-                pl[i] = Partial()
-        return tuple(pl)
-
-    split = set(((bax,) if isinstance(bax, str) else (bax or ()))) | ({hax} if hax else set())
-    grads = [pl if i in (0, 1, 5) else partial_over(specs[i], split)
-             for i, pl in enumerate(pls)]
-
-    def local(x, dt, A, B, C, init=None):
+    def local(x, dt, A, B, C, init):
         return _ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(), B.contiguous(),
                          C.contiguous(), None if init is None else init.contiguous())
 
-    out_pl = (pls[0], placements((bax, hax, None, None), mesh))
-    return local_map(local, out_placements=out_pl, in_placements=tuple(pls),
-                     in_grad_placements=tuple(grads), device_mesh=mesh)(*args)
+    return sharding.per_rank(local, (x, dt, A, B, C, initial_state), specs,
+                             [specs[0], specs[-1]])

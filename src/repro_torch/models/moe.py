@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distribution import sharding
 from . import layers
 
 __all__ = ["apply_moe", "set_moe_impl", "get_moe_impl"]
@@ -49,10 +50,21 @@ def _route(p: Dict[str, Any], xt: torch.Tensor, cfg: ArchConfig):
     gates, eidx = torch.topk(probs, cfg.experts_per_token, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
     me = probs.mean(0)
-    ce = torch.zeros_like(me).index_add_(
-        0, eidx.reshape(-1), torch.ones(eidx.numel(), device=xt.device)) / eidx.numel()
-    aux = cfg.n_experts * torch.sum(me * ce)
+    aux = cfg.n_experts * torch.sum(me * _expert_share(eidx, me))
     return gates, eidx, aux
+
+
+def _expert_share(eidx: torch.Tensor, me: torch.Tensor) -> torch.Tensor:
+    """The share of routed slots that picked each expert, (E,) f32.  A
+    DTensor counts them as a one-hot sum, a partial sum over the ranks that
+    split the tokens: DTensor has no sharding rule for ``index_add_``, and
+    torch 2.11 cannot shard it through its decomposition fallback either.
+    The counts are integers, exact either way."""
+    if sharding.is_dtensor(eidx):
+        counts = F.one_hot(eidx.reshape(-1), me.shape[0]).sum(0)
+        return counts.to(me.dtype) / eidx.numel()
+    return torch.zeros_like(me).index_add_(
+        0, eidx.reshape(-1), torch.ones(eidx.numel(), device=eidx.device)) / eidx.numel()
 
 
 def _expert_ffn(experts: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
@@ -122,5 +134,12 @@ def _apply_dispatch(p, xt: torch.Tensor, gates: torch.Tensor, eidx: torch.Tensor
     expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(dt), x_g)
     expert_in = layers.hint(expert_in.transpose(0, 1), "experts", "batch", None, None)
     expert_out = _expert_ffn(p["experts"], expert_in)  # (e, g, cap, d)
-    y = torch.einsum("gtec,gecd->gtd", combine.to(dt), expert_out.transpose(0, 1))
+    expert_out = expert_out.transpose(0, 1)  # (g, e, cap, d)
+    if sharding.is_dtensor(combine):
+        # the same contraction with (e, cap) flattened experts first: torch
+        # 2.11's DTensor refuses the einsum's (cap, e) flattening of a
+        # tensor sharded over the experts
+        y = combine.to(dt).reshape(g, tg, e * cap) @ expert_out.reshape(g, e * cap, d)
+    else:
+        y = torch.einsum("gtec,gecd->gtd", combine.to(dt), expert_out)
     return y.reshape(t, d)

@@ -4,6 +4,8 @@ kernels' ``meta`` routes (``kernels/cost.py``), on the CPU:
   * one matmul and a chain of two, counted on ``meta`` tensors, give
     exactly the FLOPs (and, in f32, the bytes) of the reference's
     ``hlo_analysis.analyze`` over the compiled HLO of the same function;
+  * reusing a meta op's outputs for a signature seen before changes no
+    count (reduced xLSTM's cells, with every meta kernel run instead);
   * on a fake (2, 2) process group, a column-parallel, a row-parallel and a
     replicated linear counted under DTensor equal the same rank's explicit
     local computation on plain ``meta`` tensors (the row-parallel one with
@@ -103,6 +105,50 @@ def test_memory_peak_follows_lifetimes():
     assert c.temp_bytes == 2 * (4 << 20)  # a and b, or b and d, live at once
     assert c.live_bytes == 4 << 20  # e
     del e
+
+
+class _EveryKernel(CostCounter):
+    """The counter with every meta kernel run (no output reused)."""
+
+    def __init__(self):
+        super().__init__()
+        self._meta_outputs = None
+
+
+def test_reused_meta_outputs_leave_other_tensors_alone():
+    """Only an op on meta tensors reuses outputs: a factory op (whose device
+    is an argument) and an op on host tensors run each time."""
+    with CostCounter():
+        for _ in range(2):
+            t = torch.arange(3) + 1
+            assert t.device.type == "cpu" and t.tolist() == [1, 2, 3]
+        m = _m(4, dtype=torch.float32)
+        a, b = m * 2, m * 2
+        assert a.device.type == b.device.type == "meta" and a.shape == b.shape == (4,)
+        assert a.untyped_storage()._cdata != b.untyped_storage()._cdata
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_reused_meta_outputs_count_as_the_meta_kernels(kind, monkeypatch):
+    """Reduced xLSTM's cell on the fake (2, 2) group (the sLSTM's time loop
+    repeats each op's signature), counted with the meta outputs reused and
+    with every meta kernel run: the same FLOPs, bytes, collectives, booked
+    kernels and memory."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    shape = {"train": ShapeConfig("train_4k", 8, 16, "train", microbatch=16),
+             "decode": ShapeConfig("decode_32k", 8, 4, "decode")}[kind]
+    cells = []
+    for counter in (CostCounter, _EveryKernel):
+        monkeypatch.setattr(dryrun, "CostCounter", counter)
+        cells.append(dryrun.run_cell("xlstm-125m", shape.name, False,
+                                     cfg=reduced(get_config("xlstm-125m")), shape=shape,
+                                     mesh_shape=((2, 2), ("data", "model")), out_dir=None))
+    assert cells[0]["status"] == cells[1]["status"] == "ok"
+    for key in ("per_device", "kernels", "hlo_flops_total", "roofline"):
+        assert cells[0][key] == cells[1][key], key
 
 
 # ---------------------------------------------------------------------------
@@ -282,8 +328,8 @@ def test_attention_pairs_closed_cases():
 # ---------------------------------------------------------------------------
 def test_sharded_prefill_and_decode_match_unsharded(tmp_path):
     tds.spawn(tds.sharded_decode_case, 4, tmp_path, str(tmp_path))
-    got = np.load(tmp_path / "sharded.npz")
-    want = np.load(tmp_path / "plain.npz")
+    got = np.load(tmp_path / "smollm-135m-sharded.npz")
+    want = np.load(tmp_path / "smollm-135m-plain.npz")
     for key in want.files:
         np.testing.assert_allclose(got[key], want[key], rtol=0, atol=2e-5 * max(
             1.0, float(np.abs(want[key]).max())), err_msg=key)

@@ -15,8 +15,9 @@ sharding constraints).
 ``sharded_case`` is the rank side of the train-step parity: for one mesh
 case, the loss and gradients of batch 0 and (unless the case says
 ``"steps": False``) the parameters after two AdamW steps (f32 and int8
-moments), gathered whole on rank 0; each case spawns its own ranks, and
-``unsharded_cases`` runs the same with no mesh in a process beside them.
+moments, or the case's ``"moments"``), gathered whole on rank 0; each case
+spawns its own ranks, and ``unsharded_cases`` runs the same with no mesh in
+a process beside them.
 ``REFERENCE_STEPS`` is the same on the reference's jitted sharded step
 (one subprocess per case).  Both packages start from the
 reference's initial weights (``params.pkl``), bridged into the port with
@@ -44,6 +45,8 @@ JOIN_TIMEOUT = 120
 OPT = dict(lr=1e-3, eps=1e-3, warmup_steps=2, decay_steps=50)
 STEPS = 2
 SEQ, BATCH = 16, 8
+#: the AdamW moments a case steps with (a case's "moments" picks fewer)
+MOMENTS = ("float32", "int8")
 
 
 def _rank_main(rank, world, init, fn, args):
@@ -189,7 +192,7 @@ def _run_case(mb, params, case, moe_impl):
             grads = torch.autograd.grad(loss, leaves)
         out["loss"] = float(full(loss))
         out["grads"] = {k: full(v) for k, v in paths(tree_unflatten(p, grads)).items()}
-        for moment in ("float32", "int8") if case.get("steps", True) else ():
+        for moment in case.get("moments", MOMENTS) if case.get("steps", True) else ():
             ocfg = topt.AdamWConfig(**OPT, moment_dtype=moment)
             step = make_train_step(mb, ocfg, TrainConfig(remat=True,
                                                          microbatch=case.get("microbatch", 0)))
@@ -289,7 +292,7 @@ for name, case in {cases!r}.items():
         (loss, _), grads = jax.jit(jax.value_and_grad(mb.loss_fn, has_aux=True))(p, b0)
         out["loss"] = float(loss)
         out["grads"] = {{k: np.asarray(v) for k, v in paths(grads).items()}}
-        for moment in ("float32", "int8") if case.get("steps", True) else ():
+        for moment in case.get("moments", ("float32", "int8")) if case.get("steps", True) else ():
             ocfg = opt.AdamWConfig(**OPT, moment_dtype=moment)
             st = opt.init(params, ocfg)
             on = shd.named(shd.opt_state_specs(params, st, mesh, fsdp), mesh)
@@ -437,34 +440,29 @@ def check_params(ref, port, name, moment):
                                    rtol=LOSS_RTOL)
 
 
-def sharded_decode_case(rank, world, out_dir):
-    """Reduced f32 smollm-135m: a prefill of 16 tokens and two decode steps
-    on a (2, 2) mesh, parameters placed without fsdp and the cache by
-    ``cache_specs`` (its sequence over ``model``, so every write lands in
-    each rank's block of rows, and the decode kernel takes it through
-    ``local_map``); rank 0 also runs the same with no mesh and saves the
-    logits and the final K/V cache of both."""
+def sharded_decode_case(rank, world, out_dir, archs=("smollm-135m",)):
+    """For each of ``archs`` at ``reduced()``, f32: a prefill of 16 tokens
+    and two decode steps on a (2, 2) mesh, parameters placed without fsdp
+    and the cache by ``cache_specs`` (a KV cache's sequence over ``model``,
+    so every write lands in each rank's block of rows, and the decode kernel
+    takes it through ``local_map``; a recurrent state by batch and its
+    widest dim); rank 0 also runs the same with no mesh and saves the logits
+    and every leaf of the final cache of both (``<arch>-sharded.npz``,
+    ``<arch>-plain.npz``)."""
+    import contextlib
+
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.distribution import sharding as shd
     from repro_torch.models import bundle
 
-    cfg = port_cfg("smollm-135m", {})
-    mb = bundle(cfg)
-    params = mb.init(torch.Generator().manual_seed(0), device="cpu")
-    rng = np.random.default_rng(0)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))).to(torch.int32)
-    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 4, 1))).to(torch.int32)
-
-    def run(m):
+    def run(mb, params, prompt, steps, m):
         out = {}
         if m is None:
             p, place = params, (lambda t, s: t)
         else:
             p = shd.distribute(params, shd.param_specs(params, m, False), m)
             place = (lambda t, s: shd.distribute(t, s, m))
-        import contextlib
-
         ctx = shd.use_mesh(m, fsdp=False) if m is not None else contextlib.nullcontext()
         rep = implicit_replication() if m is not None else contextlib.nullcontext()
         with ctx, rep:
@@ -478,11 +476,18 @@ def sharded_decode_case(rank, world, out_dir):
                 logits, cache = mb.decode_fn(p, cache, tok, idx)
                 out[f"decode{i}"] = full(logits)
             for k, v in paths(cache).items():
-                if k.endswith("/k") or k.endswith("/v"):
+                if not k.endswith("/index"):
                     out[k] = full(v)
         return out
 
-    sharded = run(mesh((2, 2), ("data", "model")))
-    if rank == 0:
-        np.savez(Path(out_dir) / "sharded.npz", **sharded)
-        np.savez(Path(out_dir) / "plain.npz", **run(None))
+    for arch in archs:
+        cfg = port_cfg(arch, {})
+        mb = bundle(cfg)
+        params = mb.init(torch.Generator().manual_seed(0), device="cpu")
+        rng = np.random.default_rng(0)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))).to(torch.int32)
+        steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 4, 1))).to(torch.int32)
+        sharded = run(mb, params, prompt, steps, mesh((2, 2), ("data", "model")))
+        if rank == 0:
+            np.savez(Path(out_dir) / f"{arch}-sharded.npz", **sharded)
+            np.savez(Path(out_dir) / f"{arch}-plain.npz", **run(mb, params, prompt, steps, None))
