@@ -15,6 +15,14 @@ modes:
   * prefill  — full-sequence causal, K/V and recurrent state written into
                the cache in place
   * decode   — one token per sequence against the cache, in place
+
+Telemetry (``repro_torch.obs``): a ``model.forward`` span per call (``mode``
+"decode" for one token a row at given positions, else "prefill"; ``rows``
+the token rows computed) over ``model.embed`` (the embedding and any
+frontend: patch projection, audio encoder), one ``model.block`` per layer
+(``layer``, ``kind``; Zamba2's shared attention block as kind
+"shared_attn", ``layer`` its application's number) and ``model.head`` (the
+final norm and the f32 head).
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..distribution import sharding
 from ..kernels import ops as kops
+from ..obs import get_telemetry
 from . import layers, moe, ssm
 
 Params = Dict[str, Any]
@@ -228,20 +237,28 @@ class Model:
     def _trunk(self, params: Params, x: torch.Tensor, positions, cache):
         """-> (x, aux summed over the blocks)."""
         cfg = self.cfg
+        tel = get_telemetry()
+        tracer = tel.tracer
         block = _maybe_remat(_apply_block)
         done, shared_ct, aux_total = 0, 0, 0.0
         for gi, (kind, count) in enumerate(self._groups()):
             gp = params["groups"][gi]
             gc = cache["groups"][gi] if cache is not None else None
             for i in range(count):
-                x, aux = block(_layer(gp, i), x, kind, cfg, positions,
-                               _layer(gc, i) if gc is not None else None)
+                with tracer.span("model.block") as sp:
+                    if tel.enabled:
+                        sp.set(layer=done + i, kind=kind)
+                    x, aux = block(_layer(gp, i), x, kind, cfg, positions,
+                                   _layer(gc, i) if gc is not None else None)
                 aux_total = aux_total + aux
             done += count
             if (cfg.shared_attn_every and done % cfg.shared_attn_every == 0
                     and shared_ct < self.n_shared_apps):
                 sc = _layer(cache["shared"], shared_ct) if cache is not None else None
-                x, aux = _apply_block(params["shared_attn"], x, "attn", cfg, positions, sc)
+                with tracer.span("model.block") as sp:
+                    if tel.enabled:
+                        sp.set(layer=shared_ct, kind="shared_attn")
+                    x, aux = _apply_block(params["shared_attn"], x, "attn", cfg, positions, sc)
                 aux_total = aux_total + aux
                 shared_ct += 1
         return x, aux_total
@@ -253,16 +270,21 @@ class Model:
         a cache, written there; without it (decode) they are read from the
         cache.  -> (x, aux summed over the blocks)."""
         cfg = self.cfg
+        tel = get_telemetry()
+        tracer = tel.tracer
         gp, cross = params["groups"][0], params["cross"]
         aux_total = 0.0
         for i in range(cfg.n_layers):
-            bc = _layer(cache["groups"][0], i) if cache is not None else None
-            x, aux = _apply_block(_layer(gp, i), x, "attn", cfg, positions, bc)
-            aux_total = aux_total + aux
-            cp = sharding.gather_fsdp(_layer(cross, i))
-            h = layers.apply_norm(cp["ln"], x, cfg.norm)
-            cc = _layer(cache["cross"], i) if cache is not None else None
-            x = x + layers.cross_attention(cp["attn"], h, cfg, enc_out, cc)
+            with tracer.span("model.block") as sp:
+                if tel.enabled:
+                    sp.set(layer=i, kind="attn")
+                bc = _layer(cache["groups"][0], i) if cache is not None else None
+                x, aux = _apply_block(_layer(gp, i), x, "attn", cfg, positions, bc)
+                aux_total = aux_total + aux
+                cp = sharding.gather_fsdp(_layer(cross, i))
+                h = layers.apply_norm(cp["ln"], x, cfg.norm)
+                cc = _layer(cache["cross"], i) if cache is not None else None
+                x = x + layers.cross_attention(cp["attn"], h, cfg, enc_out, cc)
         return x, aux_total
 
     # ---- public entry points -------------------------------------------------
@@ -280,22 +302,32 @@ class Model:
         prefill, a VLM's "patch_embeds" (B,n_patches,frontend_dim) or an
         encoder-decoder's "frames" (B,frontend_len,frontend_dim)."""
         cfg = self.cfg
-        params = _gather_top(params)
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        if positions is None:
-            positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        x = self._embed_inputs(params, batch)
-        if cfg.enc_dec:
-            enc_out = self._encode(params, batch["frames"]) if "frames" in batch else None
-            x, aux = self._trunk_encdec(params, x, positions, cache, enc_out)
-        else:
-            x, aux = self._trunk(params, x, positions, cache)
-        x = layers.apply_norm(params["ln_f"], x, cfg.norm)
-        head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
-        logits = layers.lm_logits(head, x, cfg.tie_embeddings)
-        if not isinstance(aux, torch.Tensor):
-            aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        tel = get_telemetry()
+        tracer = tel.tracer
+        with tracer.span("model.forward") as sp:
+            params = _gather_top(params)
+            tokens = batch["tokens"]
+            b, s = tokens.shape
+            if tel.enabled:
+                sp.set(mode="decode" if positions is not None and s == 1 else "prefill",
+                       rows=b * s)
+            if positions is None:
+                positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+            with tracer.span("model.embed"):
+                x = self._embed_inputs(params, batch)
+                enc_out = None
+                if cfg.enc_dec and "frames" in batch:
+                    enc_out = self._encode(params, batch["frames"])
+            if cfg.enc_dec:
+                x, aux = self._trunk_encdec(params, x, positions, cache, enc_out)
+            else:
+                x, aux = self._trunk(params, x, positions, cache)
+            with tracer.span("model.head"):
+                x = layers.apply_norm(params["ln_f"], x, cfg.norm)
+                head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
+                logits = layers.lm_logits(head, x, cfg.tie_embeddings)
+            if not isinstance(aux, torch.Tensor):
+                aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
         return logits, cache, aux
 
     # ---- loss -----------------------------------------------------------------

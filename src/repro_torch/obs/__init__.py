@@ -3,10 +3,12 @@ A copy of the reference's ``obs`` package; metric names keep the
 ``repro_`` prefix, so both packages export the same exposition.
 
 The control plane (engine verbs, online/demand simulators, placement
-fabric, serving cluster) is instrumented against a process-global
-:class:`Telemetry` handle.  The default handle is a **no-op**: seeded runs
-stay byte-identical and the instrumentation costs one global read plus one
-no-op call per site.  Opt in explicitly:
+fabric, serving cluster) and the serving path (the continuous-batching
+``serving.engine.Engine``, ``serving.kvcache.insert_prefix`` and the model's
+``Model.forward``: embedding, each block, the head) are instrumented
+against a process-global :class:`Telemetry` handle.  The default handle is
+a **no-op**: seeded runs stay byte-identical and the instrumentation costs
+one global read plus one no-op call per site.  Opt in explicitly:
 
     from repro_torch import obs
 
@@ -24,7 +26,8 @@ Render a JSONL trace afterwards:
 Layers (see the submodules for detail):
 
 * ``trace``   — ``Tracer`` / ``Span``: nested wall-time spans with causal
-  parent ids, plus simulated-time point events.
+  parent ids, on the host's ``perf_counter`` clock and, while a
+  ``torch.profiler`` session records, as its ranges too; plus point events.
 * ``metrics`` — ``MetricsRegistry``: counters / gauges / histograms with
   fixed-capacity ring-buffer time series and numpy-compatible percentile
   math.

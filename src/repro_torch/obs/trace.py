@@ -11,6 +11,13 @@ Two record kinds flow through a :class:`Tracer`:
   *arbitrary* clock, used for simulated-time marks like migration windows
   and autoscale decisions where wall time is meaningless.
 
+A span keeps its start and end on the host's ``time.perf_counter`` clock
+(``t_start`` / ``t_end``) beside its wall-clock start.  While a
+``torch.profiler`` session records, a live span also opens a profiler range
+of its own name (``record_function``), so the spans land on the device
+trace's clock, nested as they are here; with no session recording, no range
+is opened (a range costs ~13 us even then).
+
 The default process-global tracer is a :class:`NoopTracer`: ``span()``
 returns a shared singleton whose ``__enter__``/``__exit__``/``set`` do
 nothing, so instrumentation left in hot paths costs one attribute lookup and
@@ -21,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -46,16 +54,25 @@ class SpanEvent:
         }
 
 
+def _profiler_recording() -> bool:
+    """Whether a torch profiler session is recording (never true where
+    nothing has imported torch)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
+
+
 class Span:
     """One wall-time interval in a trace tree.
 
     Used as a context manager (via :meth:`Tracer.span`); ``set(**attrs)``
     attaches attributes at any point while open or after close.
+    ``t_start`` / ``t_end`` are ``time.perf_counter`` seconds (``t_end`` is
+    None while open).
     """
 
     __slots__ = (
         "name", "span_id", "parent_id", "trace_id",
-        "start_unix", "duration", "attrs", "_tracer", "_t0", "status",
+        "start_unix", "t_start", "t_end", "duration", "attrs", "_tracer", "_range", "status",
     )
 
     def __init__(
@@ -74,19 +91,30 @@ class Span:
         self.trace_id = trace_id
         self.attrs: Dict[str, Any] = attrs or {}
         self.start_unix = time.time()
-        self._t0 = time.perf_counter()
+        self.t_start = time.perf_counter()
+        self.t_end: Optional[float] = None
         self.duration = 0.0
         self.status = "ok"
+        self._range = None
 
     def set(self, **attrs: Any) -> "Span":
         self.attrs.update(attrs)
         return self
 
     def __enter__(self) -> "Span":
+        if _profiler_recording():
+            from torch.profiler import record_function
+
+            self._range = record_function(self.name)
+            self._range.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        self.duration = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        self.t_end = time.perf_counter()
+        self.duration = self.t_end - self.t_start
         if exc_type is not None:
             self.status = "error"
             self.attrs.setdefault("error", exc_type.__name__)
@@ -101,6 +129,8 @@ class Span:
             "parent_id": self.parent_id,
             "trace_id": self.trace_id,
             "start_unix": self.start_unix,
+            "t_start": self.t_start,
+            "t_end": self.t_end,
             "duration_s": self.duration,
             "status": self.status,
             "attrs": dict(self.attrs),
@@ -113,7 +143,9 @@ class Tracer:
     enabled = True
 
     def __init__(self, max_records: int = 200_000):
-        #: drop-oldest cap so unbounded runs cannot exhaust memory.
+        #: cap on the spans and on the events kept, each, so unbounded runs
+        #: cannot exhaust memory: the first ``max_records`` are kept and the
+        #: rest only counted in ``n_dropped``.
         self.max_records = max_records
         self.spans: List[Span] = []
         self.events: List[SpanEvent] = []

@@ -15,17 +15,30 @@ Counterpart of ``repro/serving/engine.py``, with the same behaviour:
 The reference jits the decode step and donates the cache; here the model
 updates the cache tensors in place.  The engine runs on the device its
 parameters live on.
+
+Telemetry (``repro_torch.obs``; the default handle records nothing): an
+``engine.submit`` event (``time.perf_counter`` clock, the spans' own) per
+request, so a request's wait for admission runs from it to the start of
+its ``engine.prefill`` span, joined by ``rid``; per ``step()`` an
+``engine.step`` span over ``engine.prefill`` (upload, forward, first-token
+readback, ``kvcache.insert``) per admitted request and one
+``engine.decode`` (prepare, index readback, upload, forward, readback,
+retire); request-level records carry the request's ``rid``.  Counters
+``engine_prefill_tokens_total`` (positions prefilled, the bucket's padding
+included) and ``engine_prefill_pad_tokens_total`` (the padding).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..models.model_zoo import ModelBundle
+from ..obs import get_telemetry
 from ..tree import tree_leaves
 from .kvcache import insert_prefix
 
@@ -115,6 +128,10 @@ class Engine:
                 f"{req.rid}: prompt+max_new={len(req.prompt)}+{req.max_new_tokens} "
                 f"exceeds max_len={self.cfg.max_len}"
             )
+        tel = get_telemetry()
+        if tel.enabled:
+            tel.tracer.event("engine.submit", time.perf_counter(), rid=req.rid,
+                             prompt_len=len(req.prompt))
         self.queue.append(req)
 
     @property
@@ -130,8 +147,12 @@ class Engine:
 
         Returns the number of tokens produced this step (incl. the first
         token each admitted request gets from its prefill logits)."""
-        produced = self._admit()
-        return produced + self._decode_step()
+        tel = get_telemetry()
+        with tel.tracer.span("engine.step") as sp:
+            admitted = self._admit()  # one token per admitted request
+            if tel.enabled:
+                sp.set(admitted=admitted, active=self.n_active)
+            return admitted + self._decode_step()
 
     def run(self, max_steps: int = 100_000) -> List[Completion]:
         for _ in range(max_steps):
@@ -161,14 +182,30 @@ class Engine:
     def _prefill_into(self, slot_id: int, req: Request) -> int:
         plen = len(req.prompt)
         pad = _next_pow2(plen) if (self.cfg.bucket_prefill and not self._recurrent) else plen
-        toks = np.zeros((1, pad), np.int64)
-        toks[0, :plen] = req.prompt
-        batch = {"tokens": torch.from_numpy(toks).to(self.device),
-                 **{k: torch.as_tensor(v).to(self.device) for k, v in req.extras.items()}}
-        logits, prefix = self.bundle.prefill_fn(self.params, batch, max_len=self.cfg.max_len)
-        # first generated token: logits at the LAST TRUE prompt position
-        first = int(torch.argmax(logits[0, plen - 1, :]))
-        insert_prefix(self.cache, prefix, slot_id, plen)
+        tel = get_telemetry()
+        tracer = tel.tracer
+        with tracer.span("engine.prefill") as sp:
+            if tel.enabled:
+                sp.set(rid=req.rid, prompt_len=plen, bucket=pad, pad_tokens=pad - plen)
+                tel.metrics.counter(
+                    "engine_prefill_tokens_total",
+                    "positions prefilled, the bucket's padding included").inc(pad)
+                tel.metrics.counter(
+                    "engine_prefill_pad_tokens_total",
+                    "prefilled positions that pad a prompt to its bucket").inc(pad - plen)
+            with tracer.span("engine.prefill.upload"):
+                toks = np.zeros((1, pad), np.int64)
+                toks[0, :plen] = req.prompt
+                batch = {"tokens": torch.from_numpy(toks).to(self.device),
+                         **{k: torch.as_tensor(v).to(self.device)
+                            for k, v in req.extras.items()}}
+            with tracer.span("engine.prefill.forward"):
+                logits, prefix = self.bundle.prefill_fn(self.params, batch,
+                                                        max_len=self.cfg.max_len)
+            with tracer.span("engine.prefill.readback"):
+                # first generated token: logits at the LAST TRUE prompt position
+                first = int(torch.argmax(logits[0, plen - 1, :]))
+            insert_prefix(self.cache, prefix, slot_id, plen)
         # the first token's KV is not in the cache yet: the next decode
         # step's write appends it
         return first
@@ -178,34 +215,44 @@ class Engine:
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return 0
-        tokens = np.zeros((self.cfg.max_slots, 1), np.int64)
-        lengths = np.zeros((self.cfg.max_slots,), np.int32)
-        for i, st in enumerate(self.slots):
-            if st is not None:
-                tokens[i, 0] = st.generated[-1]
-                lengths[i] = st.length - 1  # position OF the fed token
-        # inactive slots: keep device/host index agreement by feeding their
-        # device-side index (the model bumps every slot's index by 1).
-        dev_idx = self._slot_indexes()
-        for i in range(self.cfg.max_slots):
-            if self.slots[i] is None:
-                lengths[i] = dev_idx[i]
-        logits, self.cache, _ = self.model.forward(
-            self.params,
-            {"tokens": torch.from_numpy(tokens).to(self.device)},
-            cache=self.cache,
-            positions=torch.from_numpy(lengths).to(self.device)[:, None],
-        )
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
-        produced = 0
-        self.stats["decode_steps"] += 1
-        for i in active:
-            st = self.slots[i]
-            st.generated.append(int(nxt[i]))
-            st.length += 1
-            produced += 1
-            self.stats["tokens"] += 1
-            self._retire_if_done(i)
+        tel = get_telemetry()
+        tracer = tel.tracer
+        with tracer.span("engine.decode") as sp:
+            if tel.enabled:
+                sp.set(active=len(active),
+                       live_rows=sum(self.slots[i].length for i in active))
+            with tracer.span("engine.decode.prepare"):
+                tokens = np.zeros((self.cfg.max_slots, 1), np.int64)
+                lengths = np.zeros((self.cfg.max_slots,), np.int32)
+                for i, st in enumerate(self.slots):
+                    if st is not None:
+                        tokens[i, 0] = st.generated[-1]
+                        lengths[i] = st.length - 1  # position OF the fed token
+            with tracer.span("engine.decode.index_readback"):
+                # inactive slots: keep device/host index agreement by feeding
+                # their device-side index (the model bumps every slot's index by 1).
+                dev_idx = self._slot_indexes()
+                for i in range(self.cfg.max_slots):
+                    if self.slots[i] is None:
+                        lengths[i] = dev_idx[i]
+            with tracer.span("engine.decode.upload"):
+                batch = {"tokens": torch.from_numpy(tokens).to(self.device)}
+                positions = torch.from_numpy(lengths).to(self.device)[:, None]
+            with tracer.span("engine.decode.forward"):
+                logits, self.cache, _ = self.model.forward(
+                    self.params, batch, cache=self.cache, positions=positions)
+            with tracer.span("engine.decode.readback"):
+                nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+            with tracer.span("engine.decode.retire"):
+                produced = 0
+                self.stats["decode_steps"] += 1
+                for i in active:
+                    st = self.slots[i]
+                    st.generated.append(int(nxt[i]))
+                    st.length += 1
+                    produced += 1
+                    self.stats["tokens"] += 1
+                    self._retire_if_done(i)
         return produced
 
     def _slot_indexes(self) -> np.ndarray:

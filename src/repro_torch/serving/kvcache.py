@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Tuple, Union
 import torch
 
 from ..device import resolve_device
+from ..obs import get_telemetry
 from ..tree import tree_leaves
 
 Params = Dict[str, Any]
@@ -47,7 +48,8 @@ def insert_prefix(decode_cache: Params, prefix_cache: Params, slot: int, length:
     ``length`` is the TRUE prompt length (excluding right-padding); the
     per-slot index is set to it, so padded-prefill KV beyond the prompt is
     masked out by the ragged decode mask and overwritten by later tokens.
-    Updates ``decode_cache`` in place and returns it.
+    Updates ``decode_cache`` in place and returns it, inside a
+    ``kvcache.insert`` span.
     """
 
     def ins(key, dst, src):
@@ -62,7 +64,11 @@ def insert_prefix(decode_cache: Params, prefix_cache: Params, slot: int, length:
         else:
             dst[:, slot] = src[:, 0].to(dst.dtype)  # (stack, n_slots, ...) <- (stack, 1, ...)
 
-    ins(None, decode_cache, prefix_cache)
+    tel = get_telemetry()
+    with tel.tracer.span("kvcache.insert") as sp:
+        if tel.enabled:
+            sp.set(slot=slot, length=length)
+        ins(None, decode_cache, prefix_cache)
     return decode_cache
 
 
