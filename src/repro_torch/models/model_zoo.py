@@ -260,7 +260,10 @@ class ModelBundle:
         self, params: Params, batch: Dict[str, torch.Tensor], max_len: int
     ) -> Tuple[torch.Tensor, Params]:
         """Full-sequence forward that returns logits + a filled cache (under
-        a mesh, a cache of DTensors: ``sharding.distribute_cache``)."""
+        a mesh, a cache of DTensors: ``sharding.distribute_cache``).  The
+        logits are (B,S,V), or (B,K,V) at the positions of an optional
+        "logit_positions" (B,K) entry of ``batch`` (``Model.forward``): the
+        head then runs on those rows alone."""
         b, _ = batch["tokens"].shape
         enc_len = self.cfg.frontend_len if self.cfg.enc_dec else 0
         cache = self.model.init_cache(b, max_len, enc_len, device=batch["tokens"].device)

@@ -22,7 +22,8 @@ the token rows computed) over ``model.embed`` (the embedding and any
 frontend: patch projection, audio encoder), one ``model.block`` per layer
 (``layer``, ``kind``; Zamba2's shared attention block as kind
 "shared_attn", ``layer`` its application's number) and ``model.head`` (the
-final norm and the f32 head).
+final norm and the f32 head; ``rows`` the rows it ran over, with the counter
+``model_head_rows_total`` their sum).
 """
 from __future__ import annotations
 
@@ -300,7 +301,14 @@ class Model:
         cache is updated in place and returned for symmetry with the
         reference's functional API.  ``batch`` holds "tokens" and, at
         prefill, a VLM's "patch_embeds" (B,n_patches,frontend_dim) or an
-        encoder-decoder's "frames" (B,frontend_len,frontend_dim)."""
+        encoder-decoder's "frames" (B,frontend_len,frontend_dim).
+
+        An optional "logit_positions" (B,K) integer entry names the positions
+        whose logits the caller reads: the final norm and the f32 head then
+        run on those K rows of each sequence alone and the logits are
+        (B,K,V), row k of sequence b the logits at ``logit_positions[b, k]``.
+        Without it the head covers all S positions.  Under a mesh (a DTensor
+        trunk output) the entry is refused."""
         cfg = self.cfg
         tel = get_telemetry()
         tracer = tel.tracer
@@ -322,7 +330,15 @@ class Model:
                 x, aux = self._trunk_encdec(params, x, positions, cache, enc_out)
             else:
                 x, aux = self._trunk(params, x, positions, cache)
-            with tracer.span("model.head"):
+            with tracer.span("model.head") as sp:
+                if "logit_positions" in batch:
+                    x = _rows_at(x, batch["logit_positions"])
+                if tel.enabled:
+                    rows = x.shape[0] * x.shape[1]
+                    sp.set(rows=rows)
+                    tel.metrics.counter(
+                        "model_head_rows_total",
+                        "rows the final norm and the f32 head ran over").inc(rows)
                 x = layers.apply_norm(params["ln_f"], x, cfg.norm)
                 head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
                 logits = layers.lm_logits(head, x, cfg.tie_embeddings)
@@ -387,6 +403,17 @@ def _gather_top(params: Params) -> Params:
             out[k] = {n: v if n == stack else sharding.gather_fsdp(v)
                       for n, v in params[k].items()}
     return out
+
+
+def _rows_at(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """x (B,S,D) -> the rows (B,K,D) at ``positions`` (B,K) along S."""
+    if sharding.is_dtensor(x):
+        raise ValueError("logit_positions: not supported under a mesh (the trunk's output "
+                         "is a DTensor); leave the entry out for the full logits")
+    if positions.dim() != 2 or positions.shape[0] != x.shape[0]:
+        raise ValueError(f"logit_positions: want (B, K) with B = {x.shape[0]}, "
+                         f"got {tuple(positions.shape)}")
+    return torch.take_along_dim(x, positions.long()[..., None], dim=1)
 
 
 def _nll_sum(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

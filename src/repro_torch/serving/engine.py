@@ -6,7 +6,9 @@ Counterpart of ``repro/serving/engine.py``, with the same behaviour:
   * a new request is PREFILLED at batch 1 (padded to a power-of-two bucket
     for attention archs; exact length for recurrent archs, whose state would
     otherwise be advanced through padding), then INSERTED into a free slot
-    via kvcache.insert_prefix;
+    via kvcache.insert_prefix; the prefill's batch names the last true
+    prompt position as its "logit_positions" [[plen - 1]], so the f32 head
+    runs on that one row (logits (1, 1, V)) and not over the bucket;
   * one ``step()`` = admit waiting requests into free slots + one ragged
     decode step advancing every active slot by one token;
   * finished sequences (EOS / max_new_tokens) release their slot — the next
@@ -198,13 +200,16 @@ class Engine:
                 toks[0, :plen] = req.prompt
                 batch = {"tokens": torch.from_numpy(toks).to(self.device),
                          **{k: torch.as_tensor(v).to(self.device)
-                            for k, v in req.extras.items()}}
+                            for k, v in req.extras.items()},
+                         # the head runs at the LAST TRUE prompt position alone
+                         "logit_positions": torch.full((1, 1), plen - 1, dtype=torch.long,
+                                                       device=self.device)}
             with tracer.span("engine.prefill.forward"):
                 logits, prefix = self.bundle.prefill_fn(self.params, batch,
                                                         max_len=self.cfg.max_len)
             with tracer.span("engine.prefill.readback"):
-                # first generated token: logits at the LAST TRUE prompt position
-                first = int(torch.argmax(logits[0, plen - 1, :]))
+                # first generated token: logits at the last true prompt position
+                first = int(torch.argmax(logits[0, 0, :]))
             insert_prefix(self.cache, prefix, slot_id, plen)
         # the first token's KV is not in the cache yet: the next decode
         # step's write appends it

@@ -67,6 +67,35 @@ def test_engine_exact_length_prefill_matches_reference_engine(smollm):
     _check_against_reference_engine(smollm, bucket_prefill=False)
 
 
+@pytest.mark.parametrize("bucket", [True, False])
+def test_engine_prefill_names_the_last_true_position(smollm, monkeypatch, bucket):
+    """Every prefill's batch carries "logit_positions" [[plen - 1]] and gets
+    the logits of that one row, (1, 1, V); the completions still equal the
+    reference engine's."""
+    jmb, jparams, tmb, tparams = smollm
+    seen = []
+    real = tmb.prefill_fn
+
+    def spy(params, batch, max_len):
+        logits, cache = real(params, batch, max_len=max_len)
+        seen.append((batch["logit_positions"].tolist(), tuple(logits.shape)))
+        return logits, cache
+
+    rng = np.random.default_rng(1)
+    prompts = [list(map(int, rng.integers(1, 255, size=n))) for n in (5, 3, 8, 6)]
+    jeng = JEngine(jmb, jparams, JEngineConfig(max_slots=2, max_len=64, bucket_prefill=bucket))
+    teng = Engine(tmb, tparams, EngineConfig(max_slots=2, max_len=64, bucket_prefill=bucket))
+    monkeypatch.setattr(teng, "bundle", type("B", (), {"prefill_fn": staticmethod(spy)})())
+    for i, p in enumerate(prompts):
+        jeng.submit(JRequest(rid=f"r{i}", prompt=p, max_new_tokens=4))
+        teng.submit(Request(rid=f"r{i}", prompt=p, max_new_tokens=4))
+    want = {c.rid: (c.tokens, c.finish_reason) for c in jeng.run()}
+    got = {c.rid: (c.tokens, c.finish_reason) for c in teng.run()}
+    assert got == want
+    vocab = tmb.cfg.vocab_size
+    assert seen == [([[len(p) - 1]], (1, 1, vocab)) for p in prompts]
+
+
 def test_engine_slot_reuse_and_stats(smollm):
     _, _, mb, params = smollm
     eng = Engine(mb, params, EngineConfig(max_slots=2, max_len=32))

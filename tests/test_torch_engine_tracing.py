@@ -158,6 +158,33 @@ def test_pad_tokens_and_counters(models, arch, bucket):
     assert "repro_engine_prefill_pad_tokens_total" in text
 
 
+@pytest.mark.parametrize("slots", [1, 3])
+def test_head_rows_and_counter(models, slots):
+    """A 5-token prompt padded to 8 runs the head on one row; a decode step
+    over ``slots`` slots on ``slots`` rows; ``model_head_rows_total`` sums
+    the ``rows`` of every ``model.head`` span."""
+    mb, params = models["smollm-135m"]
+    eng = Engine(mb, params, EngineConfig(max_slots=slots, max_len=64))
+    with obs.enabled() as tel:
+        eng.submit(Request(rid="r0", prompt=[3, 1, 4, 1, 5], max_new_tokens=3))
+        eng.run()
+    tr = tel.tracer
+    (pre,) = tr.find("engine.prefill")
+    assert (pre.attrs["prompt_len"], pre.attrs["bucket"]) == (5, 8)
+    (pfwd,) = tr.children_of(_kids(tr, pre)[1])
+    assert pfwd.attrs["rows"] == 8
+    assert _kids(tr, pfwd)[-1].attrs == {"rows": 1}
+    decodes = tr.find("engine.decode")
+    assert len(decodes) == 2
+    for d in decodes:
+        (dfwd,) = tr.children_of(_kids(tr, d)[3])
+        assert _kids(tr, dfwd)[-1].attrs == {"rows": slots}
+    heads = tr.find("model.head")
+    assert [h.attrs["rows"] for h in heads] == [1] + [slots] * 2
+    assert tel.metrics.get("model_head_rows_total").value == 1 + 2 * slots
+    assert "repro_model_head_rows_total" in obs.prometheus_text(tel.metrics)
+
+
 @pytest.mark.parametrize("arch", ["smollm-135m", "zamba2-1.2b", "xlstm-125m"])
 def test_live_and_noop_handles_serve_identical_tokens(models, arch):
     off = _served(_engine(models, arch))
