@@ -13,10 +13,13 @@ some hundreds of served tokens.  An MoE model's routing is a discrete
 choice that rounding flips where two router logits nearly tie, and with a
 capacity it depends on the whole step's batch; so the harness records the
 program's expert selection through the pre-roll and the window
-(``harness.Routes``).  The reference takes that selection, works out the
-capacity drops from it itself (``capacity_keep``), and computes the rest;
-``route_gap``, how far a selected expert's reference router logit lies
-below the reference's own k-th best, checks the selection by itself.
+(``harness.Routes``).  The reference takes that selection, works out
+which of its pairs an expert takes itself (the kind's ``keep``: the
+capacity drops, or all of them for a router that drops none), and computes
+the rest; ``route_gap``, how far a selected expert's reference router
+logit lies below the reference's own k-th best, checks the selection by
+itself.  The reference, ``keep`` and the route gaps are the cell's kind's
+(``chipbench/kinds/<kind>.py``).
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from .reference import Reference, capacity_keep, route_gaps, served_gaps
+from . import kinds
+from .reference import served_gaps
 
 
 def sample(rec, seed: int, n: int) -> List[int]:
@@ -42,10 +46,12 @@ def sample(rec, seed: int, n: int) -> List[int]:
     return [longest] + sorted(rest[i] for i in pick)
 
 
-def routes_of(rec, rid: int, n_experts: int, capacity_factor: float):
-    """Per layer, the (selected, kept) experts of each position of ``rid``'s
-    teacher-forced sequence: its prefill's call for the prompt, then for
-    each decode the call of that step at its slot."""
+def routes_of(rec, rid: int, config: Dict[str, Any]):
+    """Per MoE layer, the (selected, kept) experts of each position of
+    ``rid``'s teacher-forced sequence: its prefill's call for the prompt,
+    then for each decode the call of that step at its slot; kept by the
+    configuration's kind."""
+    keep = kinds.of(config).keep
     req = rec.requests[rid]
     pre = rec.prefill_routes.get(rid)
     if pre is None or len(req.decodes) != len(req.tokens) - 1:
@@ -54,11 +60,11 @@ def routes_of(rec, rid: int, n_experts: int, capacity_factor: float):
     out = []
     for layer, sel in enumerate(pre):
         sels = [sel[:req.prompt_len]]
-        keeps = [capacity_keep(sel, n_experts, capacity_factor)[:req.prompt_len]]
+        keeps = [keep(sel, config)[:req.prompt_len]]
         for step, slot in req.decodes:
             dsel = rec.decode_routes[step][layer]
             sels.append(dsel[slot:slot + 1])
-            keeps.append(capacity_keep(dsel, n_experts, capacity_factor)[slot:slot + 1])
+            keeps.append(keep(dsel, config)[slot:slot + 1])
         out.append((torch.cat(sels), torch.cat(keeps)))
     return out
 
@@ -74,15 +80,16 @@ def readings(rec, config: Dict[str, Any], params, images, stream, rids: List[int
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        ref = Reference(config, params)
-        low = Reference(config, params, "fp8") if control else None
-        e = config.get("n_experts", 0)
+        kind = kinds.of(config)
+        ref = kind.Reference(config, params)
+        low = kind.Reference(config, params, "fp8") if control else None
+        moe = kind.moe_layers(config) > 0
         out = {"gap": 0.0, "short": 0.0}
-        if e:
+        if moe:
             out["route_gap"] = 0.0
         if control:
             out["control_gap"] = 0.0
-            if e:
+            if moe:
                 out["control_route_gap"] = 0.0
         for rid in rids:
             req = rec.requests[rid]
@@ -91,22 +98,21 @@ def readings(rec, config: Dict[str, Any], params, images, stream, rids: List[int
             tokens = stream.prompt(rid) + served[:-1]
             at = range(req.prompt_len - 1, req.prompt_len - 1 + len(served))
             image = images[stream.image_slot(rid)] if images is not None else None
-            routes = routes_of(rec, rid, e, config.get("capacity_factor", 1.25)) if e else None
+            routes = routes_of(rec, rid, config) if moe else None
             with torch.no_grad():
                 logits, rgap = ref.logits(tokens, at, image, routes)
                 out["gap"] = max(out["gap"], float(served_gaps(logits, served).max()))
-                if e:
+                if moe:
                     out["route_gap"] = max(out["route_gap"], rgap)
                 if low is not None:
                     lo, _ = low.logits(tokens, at, image, routes)
                     first = lo.argmax(-1).tolist()
                     out["control_gap"] = max(out["control_gap"],
                                              float(served_gaps(logits, first).max()))
-                    if e:
+                    if moe:
                         out["control_route_gap"] = max(
                             out["control_route_gap"],
-                            route_gaps(ref.router_logits, low.router_logits,
-                                       config["experts_per_token"]))
+                            kind.route_gaps(ref.router_logits, low.router_logits, config))
                 del logits
         return out
     finally:

@@ -15,19 +15,22 @@ requests the window served.
 Tracing (``--trace 1``) hands the engine a proxy bundle whose
 ``prefill_fn`` and ``model.forward`` are timed with a synchronize on each
 side and named for the profiler, and traces a steady slice of the window.
-Without tracing the engine gets the bundle itself.
+Without tracing the engine gets the bundle itself.  A traced run also
+keeps what the program's own telemetry (``repro_torch.obs``) recorded
+from the pre-roll on (``Program``); an untraced one leaves the program's
+no-op handle in place.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from . import kinds, weights
 from . import traffic as traffic_mod
-from . import weights
 
 PREFILL, DECODE = "chipbench.prefill", "chipbench.decode"
 
@@ -129,6 +132,43 @@ class Routes:
         return calls
 
 
+class ProgramSpan(NamedTuple):
+    name: str
+    t_start: float  # the host's perf_counter, the harness's clock
+    t_end: float
+    attrs: Dict[str, Any]
+
+
+class ProgramEvent(NamedTuple):
+    name: str
+    time: float  # perf_counter at the serving path's sites
+    attrs: Dict[str, Any]
+
+
+@dataclasses.dataclass
+class Program:
+    """What the program's live telemetry handle recorded: its finished
+    spans and its events, in the order they finished, each counter's total
+    (keyed by its name and labels, ``name{label="value"}``), and
+    how many records the tracer dropped past its cap (a reader of spans
+    or events reads nothing where that is not 0)."""
+
+    spans: List[ProgramSpan]
+    events: List[ProgramEvent]
+    counters: Dict[str, float]
+    n_dropped: int
+
+    @classmethod
+    def of(cls, tel) -> "Program":
+        tr = tel.tracer
+        return cls(
+            spans=[ProgramSpan(s.name, s.t_start, s.t_end, dict(s.attrs)) for s in tr.spans],
+            events=[ProgramEvent(e.name, e.time, dict(e.attrs)) for e in tr.events],
+            counters={m.name + m.label_str(): m.value for m in tel.metrics.instruments()
+                      if m.kind == "counter"},
+            n_dropped=tr.n_dropped)
+
+
 @dataclasses.dataclass
 class Record:
     """What one run measured, for the metric readers and the check."""
@@ -145,6 +185,7 @@ class Record:
     decode_routes: Dict[int, List[torch.Tensor]]
     trace: Optional[Dict[str, Any]] = None
     trace_bounds: Optional[tuple] = None
+    program: Optional[Program] = None  # traced runs only
 
     def window_steps(self) -> List[Step]:
         return [s for s in self.steps if s.start >= self.t_open and s.end <= self.t_close]
@@ -163,7 +204,7 @@ class Driver:
         self.images = images
         self.spans = spans
         self.routes = routes
-        self.n_moe_layers = config["n_layers"] if config.get("n_experts") else 0
+        self.n_moe_layers = kinds.of(config).moe_layers(config)
         self.max_slots = engine.cfg.max_slots
         self.requests: Dict[int, Req] = {}
         self.steps: List[Step] = []

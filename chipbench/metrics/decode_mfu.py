@@ -1,5 +1,5 @@
 """Model step, decode (``models/``): useful FLOPs of the window's decode
-forwards (one token per active slot at its position; ``flops.py``) over
+forwards (one token per active slot at its position; the kind's count) over
 their synchronized seconds (traced run, outside the profiler's slice)
 times the bf16 peak, in percent."""
 from chipbench.harness import DECODE

@@ -1,5 +1,5 @@
 """Model step, prefill (``models/``): useful prefill FLOPs (true tokens,
-experts per token, causal attention; ``chipbench/flops.py``) over the
+experts per token, causal attention; the kind's, ``chipbench/kinds/``) over the
 synchronized seconds of the window's ``prefill_fn`` calls (traced run,
 calls outside the profiler's slice) times the bf16 peak, in percent."""
 from chipbench.harness import PREFILL

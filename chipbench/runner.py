@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from . import check, cost, flops, harness, spec
+from . import check, cost, harness, kinds, spec
 from . import trace as trace_mod
 from .traffic import Traffic
 
@@ -24,15 +24,20 @@ TRACE_FROM, TRACE_SECONDS, TRACE_SHARE = 0.4, 3.0, 0.3
 
 @dataclasses.dataclass
 class Context:
-    """What a metric reader reads."""
+    """What a metric reader reads.  ``flops``: the useful-FLOP counts of the
+    configuration's kind (``kinds/<kind>.py``) unless given."""
 
     config: Dict[str, Any]
     record: harness.Record
     trace: Optional[Dict[str, Any]]
     setup_s: float
-    flops: Any = flops
+    flops: Any = None
     cost: Any = cost
     peaks: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.flops is None:
+            self.flops = kinds.of(self.config)
 
     def read(self, name: str):
         """Another metric's reading, by its reader."""
@@ -63,20 +68,26 @@ def warm_profiler(device) -> None:
 
 
 class _Slice:
-    """Starts and stops the profiler at step boundaries inside the window."""
+    """Starts and stops the profiler at step boundaries inside the window.
+    ``program``, the program's live telemetry handle, is set aside for the
+    no-op one while the profiler records: a live span opens a profiler
+    range then, and the slice's readers would count what that costs."""
 
-    def __init__(self, t_open: float, seconds: float, device):
+    def __init__(self, t_open: float, seconds: float, device, program):
         self.start_at = t_open + TRACE_FROM * seconds
         self.length = min(TRACE_SECONDS, TRACE_SHARE * seconds)
         self.device = device
+        self.program = program
         self.prof = None
         self.bounds = None
 
     def __call__(self, now: float) -> None:
         if self.prof is None and now >= self.start_at:
+            from repro_torch import obs
             from torch.profiler import ProfilerActivity, profile
 
             harness.sync(self.device)
+            obs.set_telemetry(None)
             acts = [ProfilerActivity.CPU]
             if torch.device(self.device).type == "cuda":
                 acts.append(ProfilerActivity.CUDA)
@@ -89,9 +100,12 @@ class _Slice:
 
     def stop(self) -> None:
         if self.bounds is not None and self.bounds[1] is None:
+            from repro_torch import obs
+
             harness.sync(self.device)
             self.bounds = (self.bounds[0], time.perf_counter())
             self.prof.stop()  # gathers the events: seconds, after the slice
+            obs.set_telemetry(self.program)
 
 
 @dataclasses.dataclass
@@ -110,13 +124,18 @@ class Driven:
 def drive(cell: spec.Cell, seed: int, seconds: float, traced: bool, device,
           t_process: float) -> Driven:
     """Set up, pre-roll, then the window (the profiler's slice in it when
-    ``traced``); an MoE model's routing recorded from the pre-roll on.  The
+    ``traced``); an MoE model's routing recorded from the pre-roll on, and
+    in a traced run the program's own spans, events and counters (a live
+    ``repro_torch.obs`` handle from the pre-roll to the close but inside
+    the profiler's slice; the handle found before is put back after).  The
     program's state is freed before this returns."""
+    from repro_torch import obs
+
     config, mix = cell.config, cell.traffic
     arch = spec.arch_config(config)
     stream = Traffic(mix, seed, config["vocab_size"])
     params, images, engine, spans = harness.setup(config, arch, mix, seed, device, traced)
-    routes = harness.Routes() if config.get("n_experts") else None
+    routes = harness.Routes() if kinds.of(config).moe_layers(config) else None
     driver = harness.Driver(engine, config, mix, stream, images, spans, routes)
     if traced:
         warm_profiler(device)
@@ -126,18 +145,21 @@ def drive(cell: spec.Cell, seed: int, seconds: float, traced: bool, device,
     gc.freeze()
     if routes is not None:
         routes.install()
+    found = obs.get_telemetry()
+    program = obs.set_telemetry(obs.Telemetry.live()) if traced else None
     try:
         harness.sync(device)
         t_start = time.perf_counter()
         driver.start(t_start)
         t_open = driver.run_until(t_start + float(mix["preroll_s"]))
         setup_s = t_open - t_process
-        tracer = _Slice(t_open, seconds, device) if traced else None
+        tracer = _Slice(t_open, seconds, device, program) if traced else None
         t_close = driver.run_until(t_open + seconds, on_step=tracer)
         if tracer is not None:
             tracer.stop()
         harness.sync(device)
     finally:
+        obs.set_telemetry(found)
         if routes is not None:
             routes.remove()
         gc.unfreeze()
@@ -146,6 +168,8 @@ def drive(cell: spec.Cell, seed: int, seconds: float, traced: bool, device,
     if tracer is not None and tracer.prof is not None:
         rec.trace = trace_mod.reduce(tracer.prof.events(), tracer.bounds[1] - tracer.bounds[0])
         rec.trace_bounds = tracer.bounds
+    if program is not None:
+        rec.program = harness.Program.of(program)
 
     # the program's state goes before the reference runs; the weights and
     # images are the benchmark's and stay

@@ -66,3 +66,25 @@ def test_metrics_have_readers_and_legal_fields(group):
                                    "host_clock")
             if m["name"].endswith("_roofline") or "mfu" in m["name"]:
                 assert m["unit"] == "%"
+
+
+CLOSED_LOOP = sorted(m["name"] for m in MANIFEST["per_layer"]
+                     if m["name"].endswith(".closed_loop"))
+
+
+@pytest.mark.parametrize("name", CLOSED_LOOP)
+def test_closed_loop_entries_mirror_their_base(name):
+    """A ``<base>.closed_loop`` entry is ``<base>`` in the cells that judge
+    their token gaps and not their rate: the same unit, direction and
+    source, cells disjoint from the base's, and it moves an end-to-end
+    metric that each of its cells reports."""
+    base_name = name[: -len(".closed_loop")]
+    entries = {m["name"]: m for m in MANIFEST["per_layer"] + MANIFEST["end_to_end"]}
+    m, base = entries[name], entries[base_name]
+    assert (m["unit"], m["better"], m["source"]) == (base["unit"], base["better"], base["source"])
+    if "layer" in base:
+        assert m["layer"] == base["layer"]
+    cells = {w["name"] for w in MANIFEST["workloads"]}
+    assert not set(m["workloads"]) & set(base.get("workloads", cells))
+    for cell in m["workloads"]:
+        assert m["moves"] in {e["name"] for e in spec.load_cell(cell).end_to_end}

@@ -69,6 +69,18 @@ def test_occupancy_and_live_share():
     assert runner.read_metric("kvcache.live_share", ctx) == pytest.approx(sum(live) / 3)
 
 
+CLOSED_LOOP = sorted(p.name[: -len(".closed_loop.py")]
+                     for p in (runner.spec.HERE / "metrics").glob("*.closed_loop.py"))
+
+
+@pytest.mark.parametrize("base", CLOSED_LOOP)
+def test_closed_loop_reader_is_its_base_reading(base, monkeypatch):
+    asked = []
+    monkeypatch.setattr(runner.Context, "read", lambda self, name: asked.append(name) or 42.5)
+    assert runner.read_metric(f"{base}.closed_loop", _ctx(_record())) == 42.5
+    assert asked == [base]
+
+
 def test_untraced_run_leaves_trace_metrics_out():
     ctx = _ctx(_record())
     for name in ("dispatch.kernels_per_decode_step", "flash_roofline", "decode_roofline",

@@ -1,14 +1,15 @@
 """The program's own telemetry (``repro_torch.obs``) beside the benchmark.
 
-The benchmark installs no live handle: its runs, traced or not, record
-nothing of the program's, so the readings of two versions of the program
-compare like for like.  With a live handle installed after warm-up (as a
-traced run that reads the program's spans would), a run stays correct and
-the program's spans and the harness's records share one clock: each
-harness step holds one ``engine.step``, each of the proxy's timed forwards
-lies inside the engine's forward span and around the model's.  On the
-profiler's events, the program's ranges, host-side or device-side, leave
-what ``trace.reduce`` and the device readers read unchanged.
+An untraced run, which gives the end-to-end metrics, keeps the program's
+no-op handle: it records nothing of the program's.  A traced run installs
+a live handle after warm-up, sets it aside for the no-op one while the
+profiler records, keeps what it recorded on its ``Record`` (``program``)
+and puts the handle it found back.  The program's spans and the harness's
+records share one clock: each harness step outside the profiler's slice
+holds one ``engine.step``, each of the proxy's timed forwards lies inside
+the engine's forward span and around the model's.  On the profiler's events,
+the program's ranges, host-side or device-side, leave what
+``trace.reduce`` and the device readers read unchanged.
 """
 import time
 from types import SimpleNamespace
@@ -31,53 +32,59 @@ def _noop_handle():
     obs.disable()
 
 
-def _run(name, traced, monkeypatch, live):
-    """One small run of ``name``; with ``live``, a live handle installed
-    after warm-up.  -> (result, record, the live handle or None)."""
+def _run(name, traced, monkeypatch):
+    """One small run of ``name`` -> (result, record)."""
     got = {}
-    real_warm, real_drive = harness.warm_up, runner.drive
-
-    def warm_up(*args, **kw):
-        real_warm(*args, **kw)
-        if live:
-            got["tel"] = obs.set_telemetry(obs.Telemetry.live())
+    real_drive = runner.drive
 
     def drive(*args, **kw):
         d = real_drive(*args, **kw)
         got["rec"] = d.record
         return d
 
-    monkeypatch.setattr(harness, "warm_up", warm_up)
     monkeypatch.setattr(runner, "drive", drive)
     res = runner.run_cell(tiny(name), SEED, 2.0, traced, "cpu", time.perf_counter())
-    return res, got["rec"], got.get("tel")
+    return res, got["rec"]
 
 
 @pytest.mark.parametrize("traced", [False, True])
 def test_the_benchmark_records_nothing_of_the_program(traced, monkeypatch):
-    res, _, _ = _run(CELLS[0], traced, monkeypatch, live=False)
+    """Nothing is left in the program's process-global handle: a traced
+    run's records are the run's own, untraced runs keep none."""
+    res, rec = _run(CELLS[0], traced, monkeypatch)
     assert res["correct"], res["checks"]
     tel = obs.get_telemetry()
     assert not tel.enabled and tel.tracer.records() == []
+    assert (rec.program is not None) == traced
+    assert ("dispatch.decode_host_ms" in res["metrics"]) == traced
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_live_program_spans_share_the_harness_clock(name, monkeypatch):
-    res, rec, tel = _run(name, True, monkeypatch, live=True)
+    res, rec = _run(name, True, monkeypatch)
     assert res["correct"], res["checks"]
-    tr = tel.tracer
-    assert tr.n_dropped == 0
+    prog = rec.program
+    assert prog.n_dropped == 0
     steps = rec.window_steps()
     assert steps
-    eng_steps = tr.find("engine.step")
-    fwd = {k: tr.find(k) for k in ("engine.prefill.forward", "engine.decode.forward")}
-    models = tr.find("model.forward")
-    prefills = {s.attrs["rid"]: s for s in tr.find("engine.prefill")}
+
+    def find(name):
+        return [s for s in prog.spans if s.name == name]
+
+    eng_steps = find("engine.step")
+    fwd = {k: find(k) for k in ("engine.prefill.forward", "engine.decode.forward")}
+    models = find("model.forward")
+    prefills = {s.attrs["rid"]: s for s in find("engine.prefill")}
 
     def inside(spans, a, b):
         return [s for s in spans if a <= s.t_start and s.t_end <= b]
 
-    for st in steps:
+    a, b = rec.trace_bounds
+    assert not inside(prog.spans, a, b)  # nothing recorded while the profiler recorded
+    assert [s for s in prog.spans if s.t_end < a] and [s for s in prog.spans if s.t_start > b]
+    outside = [st for st in steps if st.end < a or st.start > b]
+    assert len(outside) < len(steps)
+    for st in outside:
         (es,) = inside(eng_steps, st.start, st.end)
         assert es.attrs["admitted"] == len(st.admitted)
         assert es.attrs["active"] == len(st.decode_slots)
@@ -85,7 +92,6 @@ def test_live_program_spans_share_the_harness_clock(name, monkeypatch):
             outer = "engine.prefill.forward" if kind == harness.PREFILL else "engine.decode.forward"
             (o,) = [s for s in fwd[outer] if s.t_start <= t0 and t1 <= s.t_end]
             (m,) = inside(models, t0, t1)
-            assert m.parent_id == o.span_id
             if kind == harness.PREFILL:
                 assert m.attrs == {"mode": "prefill", "rows": rows}
             else:
@@ -96,6 +102,13 @@ def test_live_program_spans_share_the_harness_clock(name, monkeypatch):
             assert p.attrs["prompt_len"] == plen
             assert p.attrs["bucket"] == _next_pow2(plen)
             assert p.attrs["pad_tokens"] == _next_pow2(plen) - plen
+    # the counters as the program keeps them: every prefill since the pre-roll
+    pre = find("engine.prefill")
+    assert prog.counters["engine_prefill_tokens_total"] == sum(s.attrs["bucket"] for s in pre)
+    submits = [e for e in prog.events if e.name == "engine.submit"]
+    assert submits and not [e for e in submits if a <= e.time <= b]
+    for e in submits:
+        assert e.attrs["prompt_len"] == rec.requests[int(e.attrs["rid"])].prompt_len
 
 
 def _ev(name, start, end, device="CPU", annotation=False):
@@ -137,3 +150,40 @@ def test_program_annotations_leave_the_reduction_unchanged():
                          runner.read_metric("dispatch.kernels_per_decode_step", ctx)))
     assert readings[0] == readings[1]
     assert readings[0][1] == 2.0  # gemm + decode, gemm + elementwise
+
+
+def _program_record(n_dropped=0):
+    """Window [10, 20), the profiler's slice [14, 15): decode forwards of
+    50, 70 and 60 ms outside the slice; one inside it, one before the
+    window, one across its close, and a prefill forward, all left out."""
+    S = harness.ProgramSpan
+    spans = [S("model.forward", 9.0, 9.03, {"mode": "decode", "rows": 2}),
+             S("model.forward", 11.0, 11.05, {"mode": "decode", "rows": 2}),
+             S("model.block", 11.0, 11.01, {"layer": 0, "kind": "attn"}),
+             S("model.forward", 12.0, 12.07, {"mode": "decode", "rows": 2}),
+             S("model.forward", 13.0, 13.5, {"mode": "prefill", "rows": 1024}),
+             S("model.forward", 14.5, 14.6, {"mode": "decode", "rows": 2}),
+             S("model.forward", 14.98, 15.02, {"mode": "decode", "rows": 2}),
+             S("model.forward", 16.0, 16.06, {"mode": "decode", "rows": 2}),
+             S("model.forward", 19.99, 20.1, {"mode": "decode", "rows": 2})]
+    rec = harness.Record({"n_layers": 1}, {}, 2, 256, 10.0, 20.0, {}, [], {}, {})
+    rec.trace_bounds = (14.0, 15.0)
+    rec.program = harness.Program(spans, [], {}, n_dropped)
+    return rec
+
+
+def test_decode_host_ms_is_the_median_decode_forward_outside_the_slice():
+    rec = _program_record()
+    ctx = runner.Context(rec.config, rec, None, 0.0)
+    assert runner.read_metric("dispatch.decode_host_ms", ctx) == pytest.approx(60.0)
+
+
+@pytest.mark.parametrize("why", ["dropped", "untraced", "no decode"])
+def test_decode_host_ms_reads_nothing_without_whole_records(why):
+    rec = _program_record(n_dropped=3 if why == "dropped" else 0)
+    if why == "untraced":
+        rec.program = None
+    if why == "no decode":
+        rec.program.spans = [s for s in rec.program.spans if s.attrs.get("mode") != "decode"]
+    ctx = runner.Context(rec.config, rec, None, 0.0)
+    assert runner.read_metric("dispatch.decode_host_ms", ctx) is None

@@ -2,68 +2,32 @@
 
 The benchmark makes the inputs that both the program and the reference
 read: the parameter tree in the program's layout (stacked layers first,
-weights ``(d_in, d_out)``), drawn leaf by leaf on the card from one
+weights ``(d_in, d_out)``), its leaves listed by the configuration's kind
+(``kinds/<kind>.py``) and drawn leaf by leaf on the card from one
 ``torch.Generator`` in the dtype they are served in, and the image patch
 embeddings.  ``check_layout`` holds the tree against the program's own
 ``param_shapes`` so a changed layout fails at set-up, not as wrong numbers.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
+
+from . import kinds
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 #: (path, shape, kind, scale, f32): kind "normal" draws N(0, scale^2),
 #: "norm" draws a norm scale N(1, 0.1^2) (not all ones, so a scale the
-#: program dropped or doubled shows in the output)
+#: program dropped or doubled shows in the output); f32 draws in float32
+#: whatever the served dtype.  A path ``("groups", "<i>", ...)`` is a leaf
+#: of the program's i-th layer group.
 Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], str, float, bool]
 
 
 def served_dtype(config: Dict[str, Any]) -> torch.dtype:
     return _DTYPES[config.get("dtype", "bfloat16")]
-
-
-def leaves(config: Dict[str, Any]) -> List[Leaf]:
-    """Every parameter of a GQA decoder with a SwiGLU or top-k MoE FFN and
-    an optional patch frontend, one layer group stacked."""
-    d, v, L = config["d_model"], config["vocab_size"], config["n_layers"]
-    h, kv = config["n_heads"], config["n_kv_heads"]
-    hd = config.get("head_dim") or d // h
-    f, e = config["d_ff"], config.get("n_experts", 0)
-    out: List[Leaf] = [
-        (("embedding",), (v, d), "normal", 0.02, False),
-        (("ln_f", "scale"), (d,), "norm", 0.0, False),
-        (("lm_head",), (d, v), "normal", d ** -0.5, False),
-    ]
-    if config.get("frontend"):
-        fd = config["frontend_dim"]
-        out.append((("frontend", "patch_proj"), (fd, d), "normal", fd ** -0.5, False))
-    g = ("groups", "0")
-    out += [
-        (g + ("ln1", "scale"), (L, d), "norm", 0.0, False),
-        (g + ("ln2", "scale"), (L, d), "norm", 0.0, False),
-        (g + ("attn", "wq"), (L, d, h * hd), "normal", d ** -0.5, False),
-        (g + ("attn", "wk"), (L, d, kv * hd), "normal", d ** -0.5, False),
-        (g + ("attn", "wv"), (L, d, kv * hd), "normal", d ** -0.5, False),
-        (g + ("attn", "wo"), (L, h * hd, d), "normal", (h * hd) ** -0.5, False),
-    ]
-    if e:
-        m = g + ("moe",)
-        out += [
-            (m + ("router",), (L, d, e), "normal", 0.02, True),
-            (m + ("experts", "w_gate"), (L, e, d, f), "normal", d ** -0.5, False),
-            (m + ("experts", "w_up"), (L, e, d, f), "normal", d ** -0.5, False),
-            (m + ("experts", "w_out"), (L, e, f, d), "normal", f ** -0.5, False),
-        ]
-    else:
-        out += [
-            (g + ("mlp", "w_gate"), (L, d, f), "normal", d ** -0.5, False),
-            (g + ("mlp", "w_up"), (L, d, f), "normal", d ** -0.5, False),
-            (g + ("mlp", "w_out"), (L, f, d), "normal", f ** -0.5, False),
-        ]
-    return out
 
 
 def _put(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
@@ -73,11 +37,12 @@ def _put(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
 
 
 def make(config: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
-    """The parameter tree from ``seed``: one draw per leaf, on ``device``."""
+    """The parameter tree from ``seed``: one draw per leaf of the
+    configuration's kind (``kinds/<kind>.py``), in its order, on ``device``."""
     gen = torch.Generator(device=device).manual_seed(seed % (1 << 63))
     dtype = served_dtype(config)
     tree: Dict[str, Any] = {}
-    for path, shape, kind, scale, f32 in leaves(config):
+    for path, shape, kind, scale, f32 in kinds.of(config).leaves(config):
         dt = torch.float32 if f32 else dtype
         w = torch.randn(shape, generator=gen, device=device, dtype=dt)
         if kind == "norm":
@@ -85,7 +50,8 @@ def make(config: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
         else:
             w.mul_(scale)
         _put(tree, path, w)
-    tree["groups"] = [tree["groups"]["0"]]
+    groups = tree["groups"]
+    tree["groups"] = [groups[str(i)] for i in range(len(groups))]
     return tree
 
 
