@@ -46,11 +46,31 @@ class ArchConfig:
     moe_d_ff: int = 0  # expert hidden dim when != d_ff
     capacity_factor: float = 1.25
 
+    # --- router (DeepSeek-V3's "noaux_tc"; the defaults are Mixtral's) -----
+    scoring_func: str = "softmax"  # softmax | sigmoid (sigmoid adds a choice-only bias)
+    n_group: int = 1  # expert groups; the topk_group best (sum of top 2) are kept
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0  # applied to the top-k gates
+    norm_topk_prob: bool = True  # the top-k gates normalised to sum 1
+    # the router's width; 0 means n_experts.  Set, the layer holds the
+    # n_experts experts from global id expert_offset and drops no token
+    n_routed_experts: int = 0
+    expert_offset: int = 0
+
+    # --- YaRN RoPE (MLA's rotary part; 0 factor = plain RoPE) --------------
+    yarn_factor: float = 0.0
+    yarn_original_len: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
     # --- structure ---------------------------------------------------------
     block_pattern: Tuple[str, ...] = ("attn",)  # cycled over layers
     enc_dec: bool = False
     n_encoder_layers: int = 0
     norm: str = "rmsnorm"  # rmsnorm | layernorm
+    norm_eps: float = 1e-5
     tie_embeddings: bool = False
     mtp_depth: int = 0  # deepseek multi-token-prediction extra blocks
 
@@ -73,6 +93,12 @@ class ArchConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def router_width(self) -> int:
+        """Experts the router scores: every expert of the model, of which
+        this layer holds ``n_experts``."""
+        return self.n_routed_experts or self.n_experts
 
     @property
     def is_recurrent(self) -> bool:

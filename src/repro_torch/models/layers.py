@@ -17,6 +17,7 @@ the forward outside a mesh is unchanged.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -27,6 +28,7 @@ from ..configs.base import ArchConfig
 from ..distribution import sharding
 from ..kernels import ops as kops
 from ..kernels.ref import quantize_kv
+from ..obs import get_telemetry
 
 Params = Dict[str, Any]
 _NEG = -1e30  # the reference's mask value
@@ -68,14 +70,64 @@ def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm", eps: float = 1
 # rotate-half convention of Llama/HF checkpoints.
 # ---------------------------------------------------------------------------
 def rope_tables(
-    positions: torch.Tensor, dim: int, theta: float
+    positions: torch.Tensor, dim: int, theta: float, cfg: Optional[ArchConfig] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions (..., S) -> (..., S, dim/2) sin/cos tables in f32."""
+    """positions (..., S) -> (..., S, dim/2) sin/cos tables in f32.  Given a
+    ``cfg`` with ``yarn_factor`` set, the frequencies are YaRN's blend
+    (``yarn_inv_freq``) and the tables carry its mscale ratio."""
     half = dim // 2
-    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / (theta ** exps)
+    if cfg is not None and cfg.yarn_factor:
+        freqs = yarn_inv_freq(dim, theta, cfg, positions.device)
+        m = yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale) / yarn_mscale(
+            cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+    else:
+        exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+        freqs = 1.0 / (theta ** exps)
+        m = 1.0
     ang = positions[..., None].float() * freqs
-    return torch.sin(ang), torch.cos(ang)
+    if m == 1.0:
+        return torch.sin(ang), torch.cos(ang)
+    return torch.sin(ang) * m, torch.cos(ang) * m
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature factor 0.1 mscale ln(factor) + 1 (1 at
+    a factor of 1 or less)."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+@functools.lru_cache(maxsize=16)
+def yarn_inv_freq(dim: int, theta: float, cfg: ArchConfig, device: torch.device) -> torch.Tensor:
+    """YaRN's inverse frequencies (dim/2,) f32 on ``device``: the plain ones
+    for the fast dimensions (more than ``yarn_beta_fast`` turns over the
+    original length), divided by ``yarn_factor`` for the slow ones (fewer
+    than ``yarn_beta_slow``), a linear ramp between (DeepSeek-V3's
+    ``yarn_find_correction_range`` and ``yarn_linear_ramp_mask``).  Made
+    once a device: the copy to a card waits for its queue."""
+    half = dim // 2
+    base = theta ** (torch.arange(0, half, dtype=torch.float32) / half)
+    extra, inter = 1.0 / base, 1.0 / (cfg.yarn_factor * base)
+
+    def corr(turns: float) -> float:
+        return dim * math.log(cfg.yarn_original_len / (turns * 2 * math.pi)) / (
+            2 * math.log(theta))
+
+    low = max(math.floor(corr(cfg.yarn_beta_fast)), 0)
+    high = min(math.ceil(corr(cfg.yarn_beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(half, dtype=torch.float32) - low) / (high - low)).clamp(0, 1)
+    keep = 1.0 - ramp  # 1: the plain frequency, 0: the interpolated one
+    return (inter * (1 - keep) + extra * keep).to(device)
+
+
+def mla_score_gain(cfg: ArchConfig) -> float:
+    """What MLA's scores are multiplied by past 1/sqrt(nope + rope): YaRN's
+    mscale squared where ``yarn_factor`` and ``yarn_mscale_all_dim`` are
+    set, else 1."""
+    if cfg.yarn_factor and cfg.yarn_mscale_all_dim:
+        return yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim) ** 2
+    return 1.0
 
 
 def apply_rope(
@@ -291,18 +343,43 @@ def mla_attention(
     decompresses the cache: wkv_b's key half is folded into the query and
     its value half applied after attending over the latents, in f32
     einsums masked by ``arange(Smax) < index + 1`` -- the reference's
-    weight absorption, which is not a kernel there either."""
+    weight absorption, which is not a kernel there either.
+
+    YaRN (``cfg.yarn_factor``) changes the rotary tables and multiplies
+    the scores by its mscale squared (``mla_score_gain``): the decode's
+    scores directly, the prefill's through its queries (flash scales by
+    1/sqrt(D) itself).
+
+    Telemetry: an ``mla.attention`` span (``mode`` "decompressed" at
+    prefill or without a cache, "absorbed" at decode; ``rows`` the latent
+    rows attended: every slot's whole ``Smax`` at decode) and the counter
+    ``mla_latent_rows_total`` of those rows."""
+    tel = get_telemetry()
+    with tel.tracer.span("mla.attention") as span:
+        b, s, _ = x.shape
+        absorbed = cache is not None and s == 1
+        if tel.enabled:
+            rows = b * (cache["c_kv"].shape[1] if absorbed else s)
+            span.set(mode="absorbed" if absorbed else "decompressed", rows=rows)
+            tel.metrics.counter("mla_latent_rows_total",
+                                "latent rows MLA attended over").inc(rows)
+        return _mla(p, x, cfg, positions, cache)
+
+
+def _mla(p: Params, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
+         cache: Optional[Params]) -> torch.Tensor:
     b, s, _ = x.shape
     nope, rope_d, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     h, r = cfg.n_heads, cfg.kv_lora_rank
+    eps = cfg.norm_eps
 
-    q = apply_norm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
+    q = apply_norm(p["q_norm"], x @ p["wq_a"], eps=eps) @ p["wq_b"]
     q = q.reshape(b, s, h, nope + rope_d)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
 
     kv_a = x @ p["wkv_a"]
-    c_kv = apply_norm(p["kv_norm"], kv_a[..., :r])
-    sin, cos = rope_tables(positions, rope_d, cfg.rope_theta)
+    c_kv = apply_norm(p["kv_norm"], kv_a[..., :r], eps=eps)
+    sin, cos = rope_tables(positions, rope_d, cfg.rope_theta, cfg)
     q_pe = apply_rope(q_pe, sin, cos)
     k_pe = apply_rope(kv_a[..., r:][:, :, None, :], sin, cos)[:, :, 0]  # one shared head
 
@@ -329,6 +406,9 @@ def mla_attention(
         scores = torch.einsum("bshr,btr->bhst", q_eff, c_all.float())
         scores = scores + torch.einsum("bshd,btd->bhst", q_pe.float(), pe_all.float())
         scores = scores / math.sqrt(nope + rope_d)
+        gain = mla_score_gain(cfg)
+        if gain != 1.0:
+            scores = scores * gain
         valid = torch.arange(smax, device=x.device)[None, :] < lim[:, None]
         scores = scores.masked_fill(~valid[:, None, None, :], _NEG)
         pr = torch.softmax(scores, dim=-1)
@@ -339,7 +419,11 @@ def mla_attention(
         kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, nope + vh)
         k = torch.cat([kv[..., :nope], k_pe[:, :, None, :].expand(b, s, h, rope_d)], dim=-1)
         v = kv[..., nope:].contiguous()
-        out = kops.flash_attention(torch.cat([q_nope, q_pe], dim=-1), k, v, causal=True)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        gain = mla_score_gain(cfg)  # flash scales by 1/sqrt(D) itself
+        if gain != 1.0:
+            q = q * gain
+        out = kops.flash_attention(q, k, v, causal=True)
     y = sharding.merge_heads(out) @ p["wo"]
     return hint(y, "batch", "seq", None)
 

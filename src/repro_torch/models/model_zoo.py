@@ -84,15 +84,20 @@ def _mla(cfg: ArchConfig, lead=()) -> Params:
 
 
 def _moe(cfg: ArchConfig, lead=()) -> Params:
-    """Router (an f32 leaf: stable softmax in a bf16 model), the experts
-    stacked (E, d, f), and the shared expert, a SwiGLU of width
-    moe_d_ff x n_shared_experts."""
+    """Router (an f32 leaf: stable softmax in a bf16 model) over the
+    router's width, the experts held stacked (E, d, f), and the shared
+    expert, a SwiGLU of width moe_d_ff x n_shared_experts.  A sigmoid
+    router also has its f32 score-correction bias (router width,), used
+    only to choose."""
     d, f, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
     p = {
-        "router": Leaf(lead + (d, e), "normal", 0.02, dtype=torch.float32),
+        "router": Leaf(lead + (d, cfg.router_width), "normal", 0.02, dtype=torch.float32),
         "experts": {"w_gate": _dense(d, f, lead + (e,)), "w_up": _dense(d, f, lead + (e,)),
                     "w_out": _dense(f, d, lead + (e,))},
     }
+    if cfg.scoring_func == "sigmoid":
+        p["router_bias"] = Leaf(lead + (cfg.router_width,), "normal", 0.05,
+                                dtype=torch.float32)
     if cfg.n_shared_experts:
         p["shared"] = _mlp(d, f * cfg.n_shared_experts, "swiglu", lead)
     return p

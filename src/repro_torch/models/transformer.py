@@ -134,7 +134,7 @@ def _apply_block(p: Params, x: torch.Tensor, kind: str, cfg: ArchConfig, positio
     weights are gathered over the data axes here, inside any remat, so a
     recompute gathers them again."""
     p = sharding.gather_fsdp(p)
-    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    h = layers.apply_norm(p["ln1"], x, cfg.norm, cfg.norm_eps)
     if kind not in ("attn", "moe"):  # recurrent mixers
         fn = {"mamba2": ssm.mamba2_block, "mlstm": ssm.mlstm_block,
               "slstm": ssm.slstm_block}[kind]
@@ -142,7 +142,7 @@ def _apply_block(p: Params, x: torch.Tensor, kind: str, cfg: ArchConfig, positio
         return x + y, 0.0
     attn = layers.mla_attention if cfg.attention == "mla" else layers.attention
     x = x + attn(p["attn"], h, cfg, positions, cache["attn"] if cache is not None else None)
-    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    h = layers.apply_norm(p["ln2"], x, cfg.norm, cfg.norm_eps)
     if kind == "moe":
         y, aux = moe.apply_moe(p["moe"], h, cfg)
         return x + y, aux
@@ -224,15 +224,15 @@ class Model:
         b, s, _ = x.shape
         for i in range(cfg.n_encoder_layers):
             bp = sharding.gather_fsdp(_layer(blocks, i))
-            hh = layers.apply_norm(bp["ln1"], x, cfg.norm)
+            hh = layers.apply_norm(bp["ln1"], x, cfg.norm, cfg.norm_eps)
             q = (hh @ bp["attn"]["wq"]).reshape(b, s, cfg.n_heads, hd)
             k = (hh @ bp["attn"]["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
             v = (hh @ bp["attn"]["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
             a = kops.flash_attention(q, k, v, causal=False)
             x = x + sharding.merge_heads(a) @ bp["attn"]["wo"]
-            hh = layers.apply_norm(bp["ln2"], x, cfg.norm)
+            hh = layers.apply_norm(bp["ln2"], x, cfg.norm, cfg.norm_eps)
             x = x + layers.apply_mlp(bp["mlp"], hh, cfg.mlp)
-        return layers.apply_norm(params["encoder"]["ln_f"], x, cfg.norm)
+        return layers.apply_norm(params["encoder"]["ln_f"], x, cfg.norm, cfg.norm_eps)
 
     # ---- decoder trunks ------------------------------------------------------
     def _trunk(self, params: Params, x: torch.Tensor, positions, cache):
@@ -283,7 +283,7 @@ class Model:
                 x, aux = _apply_block(_layer(gp, i), x, "attn", cfg, positions, bc)
                 aux_total = aux_total + aux
                 cp = sharding.gather_fsdp(_layer(cross, i))
-                h = layers.apply_norm(cp["ln"], x, cfg.norm)
+                h = layers.apply_norm(cp["ln"], x, cfg.norm, cfg.norm_eps)
                 cc = _layer(cache["cross"], i) if cache is not None else None
                 x = x + layers.cross_attention(cp["attn"], h, cfg, enc_out, cc)
         return x, aux_total
@@ -339,7 +339,7 @@ class Model:
                     tel.metrics.counter(
                         "model_head_rows_total",
                         "rows the final norm and the f32 head ran over").inc(rows)
-                x = layers.apply_norm(params["ln_f"], x, cfg.norm)
+                x = layers.apply_norm(params["ln_f"], x, cfg.norm, cfg.norm_eps)
                 head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
                 logits = layers.lm_logits(head, x, cfg.tie_embeddings)
             if not isinstance(aux, torch.Tensor):
@@ -379,7 +379,7 @@ class Model:
         h = torch.cat([emb, nxt], dim=-1) @ params["mtp"]["proj"]
         positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         h, _ = _apply_block(params["mtp"]["block"], h, "attn", cfg, positions, None)
-        h = layers.apply_norm(params["mtp"]["ln"], h, cfg.norm)
+        h = layers.apply_norm(params["mtp"]["ln"], h, cfg.norm, cfg.norm_eps)
         head = params["embedding"] if cfg.tie_embeddings else params["lm_head"]
         logits = layers.lm_logits(head, h, cfg.tie_embeddings)
         t2 = layers.roll_seq(tokens, -2)
